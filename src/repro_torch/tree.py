@@ -1,0 +1,108 @@
+"""Pytree utilities over plain dict/list/tuple containers.
+
+Parameters in the port stay nested dicts and lists of tensors, in the
+reference's layout.  Flattening follows ``jax.tree_util`` order — dict
+keys sorted, lists and tuples in order — so the flattened ``(K, N)``
+aggregation stream matches the reference element for element.  Every
+object that is not a dict, list or tuple is a leaf.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+import torch
+
+PyTree = Any
+
+
+class _Leaf:
+    """Placeholder for a leaf inside a ``TreeDef`` skeleton."""
+
+    def __repr__(self) -> str:
+        return "*"
+
+
+_LEAF = _Leaf()
+
+
+class TreeDef:
+    """The container structure of a pytree, with its leaves removed."""
+
+    def __init__(self, skeleton: Any, num_leaves: int):
+        self.skeleton = skeleton
+        self.num_leaves = num_leaves
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, TreeDef) and self.skeleton == other.skeleton
+
+    def __repr__(self) -> str:
+        return f"TreeDef({self.skeleton!r})"
+
+
+def _rebuild(node: Any, children: List[Any]) -> Any:
+    if isinstance(node, list):
+        return children
+    if hasattr(node, "_fields"):            # NamedTuple
+        return type(node)(*children)
+    return tuple(children)
+
+
+def _flatten(tree: PyTree, leaves: List[Any]) -> Any:
+    if isinstance(tree, dict):
+        return {k: _flatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return _rebuild(tree, [_flatten(t, leaves) for t in tree])
+    leaves.append(tree)
+    return _LEAF
+
+
+def tree_flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
+    leaves: List[Any] = []
+    skeleton = _flatten(tree, leaves)
+    return leaves, TreeDef(skeleton, len(leaves))
+
+
+def tree_unflatten(treedef: TreeDef, leaves: List[Any]) -> PyTree:
+    if len(leaves) != treedef.num_leaves:
+        raise ValueError(
+            f"treedef has {treedef.num_leaves} leaves, got {len(leaves)}"
+        )
+    it = iter(leaves)
+
+    def build(node: Any) -> Any:
+        if node is _LEAF:
+            return next(it)
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        return _rebuild(node, [build(n) for n in node])
+
+    return build(treedef.skeleton)
+
+
+def tree_leaves(tree: PyTree) -> List[Any]:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over corresponding leaves of ``tree`` and ``rest`` (which
+    must share its structure)."""
+    leaves, treedef = tree_flatten(tree)
+    others = []
+    for r in rest:
+        r_leaves, r_def = tree_flatten(r)
+        if r_def != treedef:
+            raise ValueError(f"tree structures differ: {treedef} vs {r_def}")
+        others.append(r_leaves)
+    return tree_unflatten(
+        treedef, [fn(*xs) for xs in zip(leaves, *others)]
+    )
+
+
+def stack(trees: List[PyTree]) -> PyTree:
+    """Stack identically structured pytrees along a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def index(stacked: PyTree, i: int) -> PyTree:
+    """Row ``i`` of every leaf of a stacked pytree."""
+    return tree_map(lambda x: x[i], stacked)
