@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, each printing one JSON line; the first failure raises and the
 script exits non-zero without a result line:
 
   1. device   — the card (nvidia-smi name and power limit, torch name).
-  2. build    — nvcc builds every kernel source under
-                src/repro_torch/kernels/csrc/ afresh, all at once.
+  2. build    — nvcc builds src/repro_torch/kernels/csrc/aggregate.cu
+                afresh.
   3. check    — each kernel against its plain PyTorch version on the
                 card, at ragged shapes and at the main path's shapes.
   4. time     — kernel, plain version and one library call (CUDA
@@ -16,13 +16,14 @@ script exits non-zero without a result line:
   5. main     — the main path: FedLEO rounds on the quickstart scenario
                 with the full-width CNN and the CUDA aggregation kernel,
                 launch counts reset just before and read just after.
-  6. profile  — one more main-path round, after the counts are read,
-                under torch.profiler: its wall time split into local
-                training, aggregation, evaluation and the rest
-                (scheduling), each range closed by a device synchronise,
-                and the device's kernel time by name with its busy share.
-  7. agree    — a small FedLEO round on the card against the same round
+  6. agree    — a small FedLEO round on the card against the same round
                 on the CPU (which the CPU tests hold to the JAX package).
+
+With --profile, one more main-path round runs after the launch counts
+are read, under torch.profiler: its wall time split into local
+training, aggregation, evaluation and the rest (scheduling), each range
+closed by a device synchronise, and the device's kernel time by name
+with its busy share (phase ``profile``).
 
 Then the kernels line, the nvidia-smi line and, last, the result line.
 TF32 is off for matmuls and convolutions, so float32 stays float32.
@@ -30,6 +31,7 @@ Exits non-zero when no CUDA device is present.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -175,6 +177,10 @@ def profile_round(torch, strategy, t: float) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one more main-path round after the checks")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -204,9 +210,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    libs = build.build(build.kernel_sources(), extra_flags=("-Xptxas", "-v"))
-    emit("build", seconds=time.perf_counter() - t0,
-         libraries=sorted(str(p.relative_to(ROOT)) for p in libs.values()))
+    lib = build.build("aggregate")
+    emit("build", seconds=time.perf_counter() - t0, library=str(lib.relative_to(ROOT)))
 
     # 3. each kernel against its plain version, on the card
     n_main = count_params(init_cnn(torch.Generator().manual_seed(0)))
@@ -283,9 +288,10 @@ def main() -> int:
         t = t_next
     wall = time.perf_counter() - t0
     launches = aggregate_flat.launches
-    prof = profile_round(torch, strategy, t)
-    t = prof.pop("t_next")
-    emit("profile", round=MAIN_ROUNDS + 1, nvidia_smi=smi, **prof)
+    if args.profile:
+        prof = profile_round(torch, strategy, t)
+        t = prof.pop("t_next")
+        emit("profile", round=MAIN_ROUNDS + 1, nvidia_smi=smi, **prof)
     strategy.finish(t)
     violations = [str(v) for v in strategy.env.sanitizer.report()]
     expected = MAIN_ROUNDS * (p + 1)
@@ -299,7 +305,7 @@ def main() -> int:
     check(not violations, f"schedule sanitizer: {violations}")
     check(accs[-1] > accs[0] and accs[-1] > 0.1, f"no learning: {accs}")
 
-    # 7. a small round on the card agrees with the same round on the CPU
+    # 6. a small round on the card agrees with the same round on the CPU
     runs = {}
     for device in ("cuda", "cpu"):
         small = FedLEO(make_task((4, 8), 16, 800, 32, 2, device),

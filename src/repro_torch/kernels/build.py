@@ -23,7 +23,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 NVCC_FLAGS = (
@@ -70,55 +70,32 @@ def library_path(name: str) -> Path:
     return build_dir() / h.hexdigest()[:16] / f"lib{name}.so"
 
 
-def _compile_command(nvcc: str, name: str, out: Path) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
-
-
-def build(names: Sequence[str], extra_flags: Sequence[str] = ()) -> Dict[str, Path]:
-    """Compile every listed kernel source that is not built yet, all
-    ``nvcc`` processes started together; returns name -> library path.
-    ``extra_flags`` (e.g. ``-Xptxas -v``) go to nvcc and are echoed on
-    stdout with the compiler's own output."""
-    paths = {n: library_path(n) for n in names}
-    todo = [n for n in names if not paths[n].is_file()]
-    if not todo:
-        return paths
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless it is built already; returns
+    the library's path."""
+    out = library_path(name)
+    if out.is_file():
+        return out
     nvcc = find_nvcc()
-    procs = []
-    for n in todo:
-        out = paths[n]
-        out.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-        os.close(fd)
-        cmd = _compile_command(nvcc, n, Path(tmp)) + list(extra_flags)
-        procs.append((n, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )))
-    failures = []
-    for n, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failures.append(f"{n}.cu:\n{log}")
-            continue
-        if extra_flags and log:
-            print(log, end="")
-        os.replace(tmp, paths[n])       # atomic: concurrent builders agree
-    if failures:
-        raise RuntimeError("nvcc failed for " + "\n".join(failures))
-    return paths
-
-
-def kernel_sources() -> List[str]:
-    """Names of every kernel source under ``csrc/``."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)        # atomic: concurrent builders agree
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
-        lib: Optional[ctypes.CDLL] = _loaded.get(name)
+        lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib

@@ -192,13 +192,16 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "CUDA_ROOTS", ())
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "out"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.build(["aggregate"])
+        build.build("aggregate")
     assert not (tmp_path / "out").exists()
 
 
 def test_build_lists_and_keys_the_kernel_sources(monkeypatch, tmp_path):
-    assert build.kernel_sources() == ["aggregate"]
+    assert (build.CSRC / "aggregate.cu").is_file()
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     path = build.library_path("aggregate")
     assert path.parent.parent == tmp_path and path.name == "libaggregate.so"
     assert build.library_path("aggregate") == path      # stable key
+    # the key covers the flags: a library built otherwise is not reused
+    monkeypatch.setattr(build, "NVCC_FLAGS", (*build.NVCC_FLAGS, "-lineinfo"))
+    assert build.library_path("aggregate") != path
