@@ -3,27 +3,38 @@
 
     python3 chip_smoke.py [--profile]
 
-Phases, each printing one JSON line; the first failure raises and the
+Phases, each printing JSON lines; the first failure raises and the
 script exits non-zero without a result line:
 
-  1. device   — the card (nvidia-smi name and power limit, torch name).
-  2. build    — nvcc builds src/repro_torch/kernels/csrc/aggregate.cu
-                afresh.
-  3. check    — each kernel against its plain PyTorch version on the
-                card, at ragged shapes and at the main path's shapes.
-  4. time     — kernel, plain version and one library call (CUDA
-                events, L2 flushed before each launch, median).
-  5. main     — the main path: FedLEO rounds on the quickstart scenario
-                with the full-width CNN and the CUDA aggregation kernel,
-                launch counts reset just before and read just after.
-  6. agree    — a small FedLEO round on the card against the same round
-                on the CPU (which the CPU tests hold to the JAX package).
+  1. device      — the card (nvidia-smi name and power limit, torch name).
+  2. build       — nvcc builds src/repro_torch/kernels/csrc/aggregate.cu
+                   and flash.cu afresh, both at once.
+  3. check       — each kernel against its plain PyTorch version on the
+                   card, at ragged shapes and at the main paths' shapes.
+  4. time        — kernel, plain version and one library call (CUDA
+                   events, L2 flushed before each launch, median of 30),
+                   beside the kernel's bound.
+  5. main        — the FedLEO path: rounds on the quickstart scenario
+                   with the full-width CNN and the CUDA aggregation
+                   kernel, launch counts reset just before and read just
+                   after.
+  6. agree       — a small FedLEO round on the card against the same
+                   round on the CPU (which the CPU tests hold to the JAX
+                   package).
+  7. serve       — the serving path: gemma-7b at full width and depth in
+                   bfloat16, prefill through the CUDA flash kernel
+                   (``make_prefill_step``) and greedy decoding against
+                   the KV cache (``make_serve_step``), launch counts
+                   reset just before and read just after.
+  8. serve_agree — prefill (kernel) against teacher-forced decode (cache
+                   path) at full width; smoke configs on the card
+                   against the CPU.
 
-With --profile, one more main-path round runs after the launch counts
-are read, under torch.profiler: its wall time split into local
-training, aggregation, evaluation and the rest (scheduling), each range
-closed by a device synchronise, and the device's kernel time by name
-with its busy share (phase ``profile``).
+With --profile, one more FedLEO round runs after the launch counts are
+read, under torch.profiler: its wall time split into local training,
+aggregation, evaluation and the rest (scheduling), each range closed by
+a device synchronise, and the device's kernel time by name with its
+busy share (phase ``profile``).
 
 Then the kernels line, the nvidia-smi line and, last, the result line.
 TF32 is off for matmuls and convolutions, so float32 stays float32.
@@ -32,6 +43,7 @@ Exits non-zero when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -39,15 +51,40 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM, bfloat16 tensor cores, dense
 SCENARIO = dict(num_planes=5, sats_per_plane=8, train=1600)
 MAIN_ROUNDS = 4
 SIM_EPOCHS = 8
+
+# flash attention: (B, S, H, G, D) checked on the card — gemma-7b's heads,
+# phi3-medium's GQA heads, MQA, and two ragged S — in five modes
+FLASH_CHECK_SHAPES = [(1, 2048, 16, 16, 256), (1, 1024, 40, 10, 128),
+                      (2, 256, 4, 1, 32), (1, 77, 4, 2, 64), (1, 2000, 16, 16, 256)]
+FLASH_MODES = {"causal": (True, None, None), "full": (False, None, None),
+               "window512": (True, 512, None), "softcap20": (True, None, 20.0),
+               "full+window512": (False, 512, None)}
+# input scales of q, k and v: scores of std 0.25 (a near-uniform softmax,
+# long rows average many keys) and of std 4 (a peaked softmax, where the
+# soft-cap bites and a wrong scale or a lost key moves the output a lot)
+FLASH_INPUT_SCALES = {"flat": 0.5, "peaked": 2.0}
+# Both versions compute in float32 from the same input values, so the
+# kernel may differ from the float32 plain version by float32 rounding,
+# FLASH_F32_REL of the output's largest value (measured: below 3e-6 of it),
+# and in bfloat16 also by its one rounding of the output, half an ulp.
+FLASH_F32_REL = 1e-5
+BF16_HALF_ULP = 2.0 ** -8
+# the serving path: gemma-7b prefill of 4 prompts of 2048 tokens
+SERVE_BATCH, SERVE_SEQ = 4, 2048
+FLASH_TIME_MODES = {"causal": (True, None, None), "window512": (True, 512, None)}
+DECODE_PROMPT, DECODE_GEN = 64, 32
+GEMMA_PARAMS = 8_537_680_896
 
 
 def emit(phase: str, **fields) -> None:
@@ -74,6 +111,28 @@ def aggregate_bound_ms(k: int, n: int, itemsize: int):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2.0 * k * n / FP32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def visible_pairs(s: int, causal: bool, window) -> int:
+    """Number of (q, k) pairs the mask lets through, for one head."""
+    total = 0
+    for q in range(s):
+        lo = max(0, q - window + 1) if window else 0
+        hi = q + 1 if causal else s
+        total += hi - lo
+    return total
+
+
+def flash_bound_ms(b, s, h, g, d, causal, window, itemsize, flops_per_s):
+    """Least time for one attention call: q, k, v read once and o written
+    once, against 4*D operations (two products) per visible (q, k) pair
+    and head; returns (ms, bound_by, bytes, flops)."""
+    nbytes = (2 * b * s * h * d + 2 * b * s * g * d) * itemsize
+    flops = 4.0 * b * h * d * visible_pairs(s, causal, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / flops_per_s
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
 
 
 def time_ms(torch, fn, flush, reps: int = 30, warmup: int = 5) -> float:
@@ -160,10 +219,7 @@ def profile_round(torch, strategy, t: float) -> dict:
     ranges = {e.key: e.cpu_time_total / 1e3 for e in stats
               if e.key in ("local_train", "evaluate", "aggregate")
               and e.device_type == DeviceType.CPU}
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in stats
-                      if e.device_type == DeviceType.CUDA
-                      and not getattr(e, "is_user_annotation", False)),
-                     key=lambda r: -r[1])
+    kernels = device_kernels(stats)
     busy_ms = sum(ms for _, ms, _ in kernels)
     return dict(
         wall_ms=wall_ms,
@@ -176,49 +232,22 @@ def profile_round(torch, strategy, t: float) -> dict:
     )
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="profile one more main-path round after the checks")
-    args = ap.parse_args()
-    import torch
+def device_kernels(stats):
+    """(name, device ms, count) of the kernels and copies in a profile,
+    largest first."""
+    from torch.autograd import DeviceType
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    return sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in stats
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda r: -r[1])
 
-    # build afresh into a directory of the checkout that .gitignore lists
-    build_root = ROOT / "build" / "chip_smoke"
-    shutil.rmtree(build_root, ignore_errors=True)
-    os.environ["REPRO_TORCH_BUILD_DIR"] = str(build_root)
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
+
+# --- the aggregation kernel (FedLEO path) -----------------------------------------
+def check_aggregate(torch, dev, gen, main_shapes):
     from repro_torch.kernels.aggregate import aggregate_flat
     from repro_torch.kernels.aggregate_ref import aggregate_flat_ref, bf16_ulp_distance
-    from repro_torch.models.cnn import init_cnn
-    from repro_torch.models.nn import count_params
-    from repro_torch.tree import tree_leaves
 
-    # 1. device
-    smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
-    emit("device", nvidia_smi=smi, torch_name=kind, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda)
-    dev = torch.device("cuda", 0)
-
-    # 2. build
-    t0 = time.perf_counter()
-    lib = build.build("aggregate")
-    emit("build", seconds=time.perf_counter() - t0, library=str(lib.relative_to(ROOT)))
-
-    # 3. each kernel against its plain version, on the card
-    n_main = count_params(init_cnn(torch.Generator().manual_seed(0)))
-    p = SCENARIO["num_planes"]
-    s = SCENARIO["sats_per_plane"]
-    main_shapes = [(s, n_main), (p, n_main)]       # plane partial, global
-    gen = torch.Generator(device=dev).manual_seed(0)
     main_err = None
     for k, n in [(1, 1_000_003), (5, 1_000_003), (8, 1_000_003), *main_shapes]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -243,9 +272,13 @@ def main() -> int:
             if (k, n) == main_shapes[0] and dtype == torch.float32:
                 main_err = abs_err
             del x, got, want
+    return main_err
 
-    # 4. times: kernel, plain version, one library call (never used by the port)
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)   # 256 MB > L2
+
+def time_aggregate(torch, dev, gen, flush, smi, main_shapes):
+    from repro_torch.kernels.aggregate import aggregate_flat
+    from repro_torch.kernels.aggregate_ref import aggregate_flat_ref
+
     timed = {}
     for k, n in [*main_shapes, (8, 2**25)]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -263,11 +296,17 @@ def main() -> int:
             emit("time", kernel="aggregate_flat", **row)
             timed[(k, n, dtype)] = row
             del x
-    del flush
+    return timed
 
-    # 5. the main path: FedLEO rounds at full CNN width on the card
+
+def run_fedleo(torch, args, smi, n_main):
+    """The FedLEO path on the card; returns aggregate_flat's launches."""
     from repro_torch.core import FedLEO, SimConfig
+    from repro_torch.kernels.aggregate import aggregate_flat
+    from repro_torch.models.nn import count_params
+    from repro_torch.tree import tree_leaves
 
+    p = SCENARIO["num_planes"]
     task = make_task((32, 64), 128, SCENARIO["train"], 16, SIM_EPOCHS, None)
     check(task.device.type == "cuda", f"task on {task.device}")
     check(all(l.is_cuda for l in tree_leaves(task.global_params)), "params not on cuda")
@@ -304,8 +343,13 @@ def main() -> int:
     check(finite, "non-finite global params")
     check(not violations, f"schedule sanitizer: {violations}")
     check(accs[-1] > accs[0] and accs[-1] > 0.1, f"no learning: {accs}")
+    return launches
 
-    # 6. a small round on the card agrees with the same round on the CPU
+
+def agree_fedleo(torch):
+    from repro_torch.core import FedLEO, SimConfig
+    from repro_torch.tree import tree_leaves
+
     runs = {}
     for device in ("cuda", "cpu"):
         small = FedLEO(make_task((4, 8), 16, 800, 32, 2, device),
@@ -321,21 +365,349 @@ def main() -> int:
     check(same_sched, "CUDA and CPU schedules differ")
     check(param_err <= 1e-4, f"CUDA and CPU params differ by {param_err}")
 
-    main_row = timed[(s, n_main, torch.float32)]
+
+# --- the flash-attention kernel (serving path) ----------------------------------------
+def flash_inputs(torch, gen, dev, b, s, h, g, d, dtype, scale=FLASH_INPUT_SCALES["flat"]):
+    return [torch.randn(shape, generator=gen, device=dev).mul_(scale).to(dtype)
+            for shape in ((b, s, h, d), (b, s, g, d), (b, s, g, d))]
+
+
+def flash_error(torch, q, k, v, causal, window, cap):
+    """The kernel against the float32 plain version on the same input
+    values: (max abs error, max abs output, whether every element lies
+    within its limit)."""
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.flash_ref import flash_attention_ref
+
+    got = flash_attention(q, k, v, causal, window, cap)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal, window, cap)
+    torch.cuda.synchronize()
+    check(got.shape == q.shape and got.dtype == q.dtype,
+          f"flash output {tuple(got.shape)} {got.dtype}")
+    check(bool(torch.isfinite(got.float()).all()), "non-finite flash output")
+    err = (got.float() - want).abs()
+    scale = float(want.abs().max())
+    allowed = FLASH_F32_REL * scale
+    if q.dtype == torch.bfloat16:
+        allowed = allowed + BF16_HALF_ULP * want.abs()
+    return float(err.max()), scale, bool((err <= allowed).all())
+
+
+def check_flash(torch, dev, gen):
+    for shape in FLASH_CHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for inputs, in_scale in FLASH_INPUT_SCALES.items():
+                q, k, v = flash_inputs(torch, gen, dev, *shape, dtype, in_scale)
+                errs, scales, oks = {}, {}, {}
+                for mode, args in FLASH_MODES.items():
+                    errs[mode], scales[mode], oks[mode] = flash_error(torch, q, k, v, *args)
+                ok = all(oks.values())
+                emit("check", kernel="flash_attention", shape=list(shape), dtype=str(dtype),
+                     inputs=inputs, max_abs_err=errs, max_abs_out=scales,
+                     rel_limit=FLASH_F32_REL,
+                     half_ulp=BF16_HALF_ULP if dtype == torch.bfloat16 else None, ok=ok)
+                check(ok, f"flash_attention disagrees with its plain version at {shape} "
+                          f"{dtype} {inputs}: {errs} (largest outputs {scales})")
+                del q, k, v
+
+
+def time_flash(torch, dev, gen, flush, smi):
+    """The kernel at the serving path's prefill shape, beside its plain
+    version, one SDPA call (a yardstick the port never calls) and its
+    bound; returns the rows by mode."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.flash_ref import flash_attention_ref
+
+    b, s, h, g, d = SERVE_BATCH, SERVE_SEQ, 16, 16, 256
+    q, k, v = flash_inputs(torch, gen, dev, b, s, h, g, d, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(s, device=dev)
+    rows = {}
+    for mode, (causal, window, cap) in FLASH_TIME_MODES.items():
+        err, scale, ok = flash_error(torch, q, k, v, causal, window, cap)
+        check(ok, f"flash {mode} at the prefill shape: {err} (largest output {scale})")
+        if window is None:
+            lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        else:
+            band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+            lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+        kern = time_ms(torch, lambda: flash_attention(q, k, v, causal, window, cap), flush)
+        plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal, window, cap), flush)
+        lib = time_ms(torch, lib_fn, flush)
+        bound, bound_by, nbytes, flops = flash_bound_ms(b, s, h, g, d, causal, window, 2,
+                                                        BF16_FLOPS_PER_S)
+        row = dict(shape=[b, s, h, g, d], dtype="torch.bfloat16", mode=mode, bytes=nbytes,
+                   flops=flops, bound_ms=bound, bound_by=bound_by, ms=kern, plain_ms=plain,
+                   library_ms=lib, max_abs_err=err, achieved_TFLOPs=flops / (kern * 1e-3) / 1e12,
+                   roofline_share=bound / kern, nvidia_smi=smi)
+        emit("time", kernel="flash_attention", **row)
+        rows[mode] = row
+    del q, k, v, qt, kt, vt
+    return rows
+
+
+def profile_call(torch, fn):
+    """One call of ``fn`` under torch.profiler: its wall time, the
+    device's busy share, and device time split into the flash kernel,
+    matrix products (cuBLAS) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - w0)
+    kernels = device_kernels(prof.key_averages())
+    if not kernels:
+        return dict(wall_ms=wall_ms, device_busy_ms="not measured")
+    busy = sum(ms for _, ms, _ in kernels)
+    flash = sum(ms for name, ms, _ in kernels if "flash_fwd_kernel" in name)
+    gemm = sum(ms for name, ms, _ in kernels
+               if any(t in name.lower() for t in ("gemm", "gemv", "xmma", "cutlass", "nvjet")))
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_busy_share=busy / wall_ms,
+                launches=sum(c for _, _, c in kernels),
+                flash_ms=flash, flash_share=flash / busy, gemm_ms=gemm, gemm_share=gemm / busy,
+                other_ms=busy - flash - gemm,
+                top_kernels=[{"name": n[:100], "ms": ms, "count": c} for n, ms, c in kernels[:10]])
+
+
+def serve(torch, dev, smi):
+    """gemma-7b at full width and depth on the card, in bfloat16: prefill
+    through the flash kernel, then greedy decoding against the cache.
+    Returns the flash launches of the phase."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.models.nn import count_params, tree_cast
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config("gemma-7b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = build_model(cfg, attn_impl="pallas")
+    check(model.device.type == "cuda" and model.dtype == torch.bfloat16,
+          f"model on {model.device} in {model.dtype}")
+    params32 = model.init(gen)
+    params = tree_cast(params32, torch.bfloat16)
+    del params32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_params = count_params(params)
+    check(n_params == GEMMA_PARAMS, f"gemma-7b has {n_params} parameters")
+    check(all(l.is_cuda and l.dtype == torch.bfloat16 for l in tree_leaves(params)),
+          "params not bfloat16 on the card")
+    emit("serve_setup", arch=cfg.name, params=n_params, layers=cfg.num_layers,
+         init_s=time.perf_counter() - t0,
+         param_GB=sum(l.numel() * l.element_size() for l in tree_leaves(params)) / 1e9,
+         peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+
+    flash_attention.launches = 0
+    prefill_calls = 0
+    for window in (None, 512):
+        step = make_prefill_step(build_model(cfg, attn_impl="pallas", sliding_window=window))
+        for s in (SERVE_SEQ, 2000):
+            tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, s), generator=gen,
+                                   device=dev)
+            logits = step(params, {"tokens": tokens})           # warm-up
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                w0 = time.perf_counter()
+                logits = step(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - w0))
+            prefill_calls += 4
+            check(logits.shape == (SERVE_BATCH, cfg.vocab_size), f"logits {tuple(logits.shape)}")
+            check(bool(torch.isfinite(logits.float()).all()), "non-finite prefill logits")
+            ms = statistics.median(times)
+            prof = {}
+            if window is None and s == SERVE_SEQ:
+                prof = profile_call(torch, lambda: step(params, {"tokens": tokens}))
+                prefill_calls += 1
+            emit("prefill", window=window, batch=SERVE_BATCH, seq=s, ms=ms, ms_all=times,
+                 tokens_per_s=SERVE_BATCH * s / (ms * 1e-3), nvidia_smi=smi, profile=prof)
+
+    for window in (None, 32):
+        model_w = build_model(cfg, attn_impl="pallas", sliding_window=window)
+        serve_step = make_serve_step(model_w)
+        prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, DECODE_PROMPT),
+                               generator=gen, device=dev)
+        max_len = DECODE_PROMPT + DECODE_GEN
+        cache = model_w.init_cache(SERVE_BATCH, max_len)
+        cache_mb = sum(l.numel() * l.element_size() for l in tree_leaves(cache)) / 1e6
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        for t in range(DECODE_PROMPT):                     # teacher-forced prompt
+            logits, cache = serve_step(params, prompt[:, t:t + 1], cache, t)
+        torch.cuda.synchronize()
+        prompt_s = time.perf_counter() - w0
+        w0 = time.perf_counter()
+        out = []
+        tok = torch.argmax(logits, dim=-1, keepdim=True)
+        for t in range(DECODE_PROMPT, max_len):            # greedy generation
+            out.append(tok)
+            logits, cache = serve_step(params, tok, cache, t)
+            tok = torch.argmax(logits, dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - w0
+        toks = torch.cat(out, dim=1)
+        # one more step, profiled, against a copy of the cache
+        spare = tree_map(torch.clone, cache)
+        prof = profile_call(torch, lambda: serve_step(params, tok, spare, max_len - 1))
+        del spare
+        finite = bool(torch.isfinite(logits.float()).all())
+        in_range = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+        emit("decode", window=window, batch=SERVE_BATCH, prompt=DECODE_PROMPT, generated=DECODE_GEN,
+             cache_MB=cache_mb, cache_slots=int(cache["block0"].k.shape[2]),
+             prompt_tokens_per_s=SERVE_BATCH * DECODE_PROMPT / prompt_s,
+             tokens_per_s=SERVE_BATCH * DECODE_GEN / gen_s, ms_per_step=1e3 * gen_s / DECODE_GEN,
+             finite=finite, tokens_in_range=in_range, sample=toks[0, :12].tolist(),
+             nvidia_smi=smi, profile=prof)
+        check(finite, "non-finite decode logits")
+        check(in_range, "generated token ids out of range")
+        check(cache["block0"].index.tolist() == [max_len] * cfg.num_layers, "cache index")
+
+    launches = flash_attention.launches
+    expected = cfg.num_layers * prefill_calls
+    emit("serve", prefill_calls=prefill_calls, flash_attention_launches=launches,
+         expected_launches=expected, peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+    check(launches == expected, f"flash_attention launched {launches} times, expected {expected}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_agree(torch, dev):
+    """The kernel path against the cache path at full width (2 layers,
+    float32), and smoke configs on the card against the CPU."""
+    from repro_torch.configs import build_model, get_config, get_smoke_config
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("gemma-7b"), num_layers=2)
+    model = build_model(cfg, attn_impl="pallas", dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = model.init(gen)
+    prompt = torch.randint(0, cfg.vocab_size, (2, DECODE_PROMPT), generator=gen, device=dev)
+    prefill = make_prefill_step(model)(params, {"tokens": prompt})
+    step = make_serve_step(model)
+    cache = model.init_cache(2, DECODE_PROMPT, dtype=torch.float32)
+    for t in range(DECODE_PROMPT):
+        logits, cache = step(params, prompt[:, t:t + 1], cache, t)
+    scale = float(prefill.abs().max())
+    err = float((prefill - logits).abs().max())
+    ok = err <= 2e-3 * scale
+    emit("serve_agree", what="gemma-7b full width, 2 layers, f32: prefill vs decode at 63",
+         max_abs_err=err, limit=2e-3 * scale, ok=ok)
+    check(ok, f"prefill and decode logits differ by {err} (largest logit {scale})")
+    del params, cache
+
+    for arch in ("gemma-7b", "phi3-medium-14b"):
+        scfg = get_smoke_config(arch)
+        cpu = build_model(scfg, attn_impl="pallas", dtype=torch.float32, device="cpu")
+        card = build_model(scfg, attn_impl="pallas", dtype=torch.float32)
+        p_cpu = cpu.init(torch.Generator().manual_seed(0))
+        tokens = torch.randint(0, scfg.vocab_size, (2, 100),
+                               generator=torch.Generator().manual_seed(2))
+        want = make_prefill_step(cpu)(p_cpu, {"tokens": tokens})
+        got = make_prefill_step(card)(tree_map(lambda p: p.to(dev), p_cpu), {"tokens": tokens})
+        err = float((got.cpu() - want).abs().max())
+        emit("serve_agree", what=f"{arch} smoke config, f32, S=100: card vs CPU",
+             max_abs_err=err, limit=2e-3, ok=err <= 2e-3)
+        check(err <= 2e-3, f"{arch} smoke prefill: card and CPU differ by {err}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one more FedLEO round after the checks")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # build afresh into a directory of the checkout that .gitignore lists
+    build_root = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(build_root, ignore_errors=True)
+    os.environ["REPRO_TORCH_BUILD_DIR"] = str(build_root)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.models.nn import count_params
+
+    # 1. device
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi, torch_name=kind, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda)
+    dev = torch.device("cuda", 0)
+
+    # 2. build, one nvcc per source, all at once
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        libs = dict(zip(("aggregate", "flash"), ex.map(build.build, ("aggregate", "flash"))))
+    emit("build", seconds=time.perf_counter() - t0,
+         libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()})
+
+    # 3. each kernel against its plain version, on the card
+    n_main = count_params(init_cnn(torch.Generator().manual_seed(0)))
+    main_shapes = [(SCENARIO["sats_per_plane"], n_main),      # plane partial
+                   (SCENARIO["num_planes"], n_main)]          # global
+    gen = torch.Generator(device=dev).manual_seed(0)
+    agg_err = check_aggregate(torch, dev, gen, main_shapes)
+    check_flash(torch, dev, gen)
+
+    # 4. times: kernel, plain version, one library call (never used by the port)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)   # 256 MB > L2
+    agg_timed = time_aggregate(torch, dev, gen, flush, smi, main_shapes)
+    flash_timed = time_flash(torch, dev, gen, flush, smi)
+    del flush
+
+    # 5-6. the FedLEO path, and a small round against the CPU
+    agg_launches = run_fedleo(torch, args, smi, n_main)
+    agree_fedleo(torch)
+
+    # 7-8. the serving path, and its agreement checks
+    flash_launches = serve(torch, dev, smi)
+    serve_agree(torch, dev)
+
+    agg_row = agg_timed[(SCENARIO["sats_per_plane"], n_main, torch.float32)]
+    flash_row = flash_timed["causal"]
     print(json.dumps({"kernels": [{
         "name": "aggregate_flat",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/aggregate.cu",
         "replaces": "src/repro/kernels/aggregate.py:33",
         "tpu": "src/repro/kernels/aggregate.py::aggregate_flat",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "max_err": main_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
+        "launches": agg_launches,
+        "max_abs_err": agg_err,
+        "max_err": agg_err,
+        "ms": agg_row["ms"],
+        "plain_ms": agg_row["plain_ms"],
+        "bound_ms": agg_row["bound_ms"],
+        "bound_by": agg_row["bound_by"],
+        "library_ms": agg_row["library_ms"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash.cu",
+        "replaces": "src/repro/kernels/flash.py:94",
+        "tpu": "src/repro/kernels/flash.py::flash_attention",
+        "launches": flash_launches,
+        "max_abs_err": flash_row["max_abs_err"],
+        "max_err": flash_row["max_abs_err"],
+        "ms": flash_row["ms"],
+        "plain_ms": flash_row["plain_ms"],
+        "bound_ms": flash_row["bound_ms"],
+        "bound_by": flash_row["bound_by"],
+        "library_ms": flash_row["library_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

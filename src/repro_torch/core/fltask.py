@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.data.partition import ClientData, stack_client_arrays
 from repro_torch.data.synthetic import Dataset
+from repro_torch.device import resolve_device
 from repro_torch.models import nn
 from repro_torch.optim import Optimizer
 from repro_torch.optim.optimizers import apply_updates
@@ -56,18 +57,6 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean((torch.argmax(logits, dim=-1) == labels).float())
-
-
-def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another one.  A missing card raises; nothing moves to the CPU
-    quietly."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 class FederatedTask:

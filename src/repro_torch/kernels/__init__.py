@@ -4,10 +4,14 @@
     server hot spot, a memory-bound streaming reduction over K stacked
     parameter vectors.  Port of the Pallas kernel
     ``src/repro/kernels/aggregate.py::aggregate_flat``.
+  * ``flash`` — grouped-query flash attention, forward (causal mask,
+    sliding window, tanh soft-cap): the attention of the LLM zoo's
+    prefill.  Port of the Pallas kernel
+    ``src/repro/kernels/flash.py::flash_attention``.
 
 Each kernel ships as ``<name>.py`` (the wrapper that launches
 ``csrc/<name>.cu``), ``<name>_ops.py`` (dispatch: the kernel for CUDA
 tensors, the plain version for CPU tensors) and ``<name>_ref.py`` (the
 plain PyTorch version).  ``build.py`` compiles the sources with ``nvcc``
-at first use.  The flash-attention and SSD kernels are not ported yet.
+at first use.  The SSD kernel is not ported yet.
 """

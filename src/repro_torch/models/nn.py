@@ -9,9 +9,11 @@ of plain functions::
 Parameters keep the reference layout — conv kernels HWIO, dense weights
 ``(in, out)`` — and activations are NHWC at every public function, so
 reference parameters load unchanged.  Layout changes to PyTorch's NCHW
-happen inside ``apply_conv`` and ``max_pool`` only.  Parameters are
-drawn on the CPU (the generator's device), so a seed gives the same
-weights whatever device the caller then moves them to.
+happen inside ``apply_conv`` and ``max_pool`` only.  Every ``init_*``
+draws on its generator's device.  The CNN's callers pass a CPU
+generator, so a seed gives the same weights whatever device they then
+move them to; the LLM zoo draws on the card itself (a CPU draw at full
+width would take tens of GB of host memory and minutes).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ PyTree = Any
 def _uniform_init(
     rng: torch.Generator, shape: Tuple[int, ...], scale: float
 ) -> torch.Tensor:
-    u = torch.rand(shape, generator=rng, dtype=torch.float32)
+    u = torch.rand(shape, generator=rng, dtype=torch.float32, device=rng.device)
     return u * (2.0 * scale) - scale
 
 
@@ -39,7 +41,7 @@ def init_dense(
     scale = math.sqrt(1.0 / in_dim)
     p = {"w": _uniform_init(rng, (in_dim, out_dim), scale)}
     if use_bias:
-        p["b"] = torch.zeros((out_dim,), dtype=torch.float32)
+        p["b"] = torch.zeros((out_dim,), dtype=torch.float32, device=rng.device)
     return p
 
 
@@ -57,7 +59,7 @@ def init_conv(
     scale = math.sqrt(1.0 / (in_ch * ksize * ksize))
     p = {"w": _uniform_init(rng, (ksize, ksize, in_ch, out_ch), scale)}
     if use_bias:
-        p["b"] = torch.zeros((out_ch,), dtype=torch.float32)
+        p["b"] = torch.zeros((out_ch,), dtype=torch.float32, device=rng.device)
     return p
 
 
@@ -96,6 +98,32 @@ def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """window x window max-pool, stride = window, VALID; NHWC in and out."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride=window)
     return y.permute(0, 2, 3, 1)
+
+
+def init_rmsnorm(dim: int) -> Dict:
+    return {"scale": torch.ones((dim,), dtype=torch.float32)}
+
+
+def apply_rmsnorm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS normalisation over the last axis, computed in float32 and
+    returned in ``x.dtype``."""
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"]).to(x.dtype)
+
+
+def init_embedding(rng: torch.Generator, vocab: int, dim: int) -> Dict:
+    table = torch.randn((vocab, dim), generator=rng, device=rng.device)
+    return {"table": table * 0.02}
+
+
+def apply_embedding(
+    p: Dict, tokens: torch.Tensor, dtype: torch.dtype = torch.bfloat16
+) -> torch.Tensor:
+    """Rows of the table for ``tokens``, in ``dtype`` (gathered first,
+    then cast: the same values as casting the whole table)."""
+    return p["table"][tokens].to(dtype)
 
 
 def count_params(params: PyTree) -> int:

@@ -2,7 +2,9 @@
 package, and its copied numpy modules stay verbatim copies.
 
   * A subprocess blocks ``jax*`` and ``repro``/``repro.*`` in
-    ``sys.meta_path``, imports repro_torch and runs one CPU FedLEO round.
+    ``sys.meta_path``, imports repro_torch and runs one CPU FedLEO round;
+    another imports the serving slice (configs, transformer, serving
+    steps) and serves a smoke gemma on the CPU.
   * An AST scan of every module of the port and of ``chip_smoke.py``
     finds no import of jax or of the reference package.
   * Every copied module equals its reference file with the imports
@@ -30,6 +32,12 @@ COPIED = [
     "obs/decomposition.py", "obs/trace.py", "obs/utilization.py",
     "analysis/sanitizer.py",
     "data/synthetic.py", "data/partition.py",
+    "configs/__init__.py", "configs/base.py", "configs/constellations.py",
+    "configs/gemma_7b.py", "configs/internvl2_26b.py", "configs/kimi_k2_1t_a32b.py",
+    "configs/llama4_maverick_400b_a17b.py", "configs/mamba2_780m.py",
+    "configs/minitron_8b.py", "configs/mistral_large_123b.py",
+    "configs/phi3_medium_14b.py", "configs/seamless_m4t_large_v2.py",
+    "configs/zamba2_1p2b.py",
 ]
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro(?=[.\s])", re.M)
 
@@ -109,3 +117,33 @@ def test_port_runs_a_round_with_jax_and_reference_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ISOLATED-OK" in proc.stdout
+
+
+_ISOLATED_SERVE = _ISOLATED_RUN[:_ISOLATED_RUN.index("import repro_torch")] + textwrap.dedent("""
+    import repro_torch.configs, repro_torch.models.transformer, repro_torch.train.steps
+    from repro_torch.configs import build_model, get_smoke_config, make_sim_config
+    from repro_torch.train.steps import make_greedy_decode, make_prefill_step
+
+    assert make_sim_config("paper-5x8").horizon_hours > 0
+    cfg = get_smoke_config("gemma-7b")
+    model = build_model(cfg, attn_impl="pallas", device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(1))
+    logits = make_prefill_step(model)(params, {"tokens": tokens})
+    cache = model.init_cache(2, 20)
+    toks, cache = make_greedy_decode(model, 4)(params, tokens[:, :1], cache, 0)
+    assert logits.shape == (2, cfg.vocab_size) and toks.shape == (2, 4)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not loaded, loaded
+    print("ISOLATED-SERVE-OK")
+""")
+
+
+def test_serving_slice_runs_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _ISOLATED_SERVE], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ISOLATED-SERVE-OK" in proc.stdout

@@ -101,3 +101,115 @@ def test_fedleo_round_on_the_card_launches_the_kernel(cuda_device):
     res = FedLEO(task, SimConfig(horizon_hours=72.0, use_kernel=True)).run(max_rounds=2)
     assert len(res.history) == 2
     assert aggregate_flat.launches == before + 2 * (5 + 1)
+
+
+# --- flash attention ---------------------------------------------------------------
+# (b, s, h, g, d): the gemma-7b head, phi3's GQA heads, MQA at head_dim 32,
+# and ragged S at head_dims 64 and 128 (no block divides S)
+FLASH_SHAPES = [(1, 512, 16, 16, 256), (1, 384, 40, 10, 128), (2, 256, 4, 1, 32),
+                (1, 77, 4, 2, 64), (1, 200, 8, 2, 128)]
+# (causal, window, soft_cap); window without causal skips tiles on one side only
+FLASH_MODES = [(True, None, None), (False, None, None), (True, 96, None),
+               (True, None, 20.0), (False, 96, None)]
+# input scales: a near-uniform softmax (scores of std 0.25) and a peaked one
+# (std 4, where the soft-cap bites)
+FLASH_INPUT_SCALES = {"flat": 0.5, "peaked": 2.0}
+
+
+def assert_flash_close(got, want):
+    """``want`` is the float32 plain version on the same input values.
+    Both compute in float32, so they may differ by float32 rounding (1e-5
+    of the largest output) and, in bfloat16, by the kernel's one rounding
+    of its output (half an ulp, 2**-8 of the value)."""
+    err = (got.float() - want).abs()
+    allowed = 1e-5 * float(want.abs().max())
+    if got.dtype == torch.bfloat16:
+        allowed = allowed + 2.0 ** -8 * want.abs()
+    assert bool((err <= allowed).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", FLASH_MODES, ids=["causal", "full", "window",
+                                                   "soft-cap", "full-window"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inputs", list(FLASH_INPUT_SCALES))
+def test_flash_kernel_matches_plain_version(cuda_device, shape, mode, dtype, inputs):
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.flash_ref import flash_attention_ref
+
+    b, s, h, g, d = shape
+    causal, window, cap = mode
+    gen = torch.Generator(device=cuda_device).manual_seed(s + h)
+    scale = FLASH_INPUT_SCALES[inputs]
+    q, k, v = (torch.randn(shp, generator=gen, device=cuda_device).mul(scale).to(dtype)
+               for shp in ((b, s, h, d), (b, s, g, d), (b, s, g, d)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal, window, cap)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal, window, cap)
+    assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_views(cuda_device):
+    """q, k and v sliced out of one packed projection, read in place."""
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.flash_ref import flash_attention_ref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    qkv = torch.randn((2, 130, 12, 64), generator=gen, device=cuda_device)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = flash_attention(q, k, v, True, None, None)
+    want = flash_attention_ref(q, k, v, True, None, None)
+    assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.flash import flash_attention
+
+    q = torch.zeros((1, 16, 4, 64), device=cuda_device)
+    kv = torch.zeros((1, 16, 2, 64), device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :48], kv[..., :48], kv[..., :48])
+    with pytest.raises(ValueError, match="last axis"):
+        flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3), kv, kv)
+    with pytest.raises(ValueError, match="H % G"):
+        flash_attention(q[:, :, :3], kv, kv)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, kv, kv, window=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q.cpu(), kv.cpu(), kv.cpu())
+
+
+@pytest.mark.cuda
+def test_prefill_on_the_card_launches_flash_per_layer(cuda_device):
+    """A smoke gemma's prefill through attn_impl="pallas": one launch per
+    layer at a ragged S, and the logits of the CPU run within 2e-3."""
+    from repro_torch.configs import build_model, get_smoke_config
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.train.steps import make_prefill_step
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke_config("gemma-7b")
+    cpu = build_model(cfg, attn_impl="pallas", dtype=torch.float32, device="cpu")
+    card = build_model(cfg, attn_impl="pallas", dtype=torch.float32)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 77), generator=torch.Generator().manual_seed(1))
+    want = make_prefill_step(cpu)(params, {"tokens": tokens})
+    before = flash_attention.launches
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = make_prefill_step(card)(tree_map(lambda p: p.to(cuda_device), params),
+                                      {"tokens": tokens})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert flash_attention.launches == before + cfg.num_layers
+    assert float((got.cpu() - want).abs().max()) <= 2e-3
