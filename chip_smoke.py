@@ -7,8 +7,8 @@ Phases, each printing JSON lines; the first failure raises and the
 script exits non-zero without a result line:
 
   1. device      — the card (nvidia-smi name and power limit, torch name).
-  2. build       — nvcc builds src/repro_torch/kernels/csrc/aggregate.cu
-                   and flash.cu afresh, both at once.
+  2. build       — nvcc builds src/repro_torch/kernels/csrc/aggregate.cu,
+                   flash.cu and ssd.cu afresh, all at once.
   3. check       — each kernel against its plain PyTorch version on the
                    card, at ragged shapes and at the main paths' shapes.
   4. time        — kernel, plain version and one library call (CUDA
@@ -29,6 +29,15 @@ script exits non-zero without a result line:
   8. serve_agree — prefill (kernel) against teacher-forced decode (cache
                    path) at full width; smoke configs on the card
                    against the CPU.
+  9. ssm_serve   — the SSM serving path, after gemma's weights are freed:
+                   mamba2-780m and zamba2-1.2b at full width and depth
+                   in bfloat16, prefill through the CUDA SSD kernel (and
+                   zamba2's shared attention through the flash kernel),
+                   greedy decoding against the recurrent cache, launch
+                   counts reset just before and read just after.
+ 10. ssm_agree   — SSM prefill (kernel) against teacher-forced decode
+                   (recurrence, no kernel) at full width; smoke configs
+                   on the card against the CPU at a ragged S.
 
 With --profile, one more FedLEO round runs after the launch counts are
 read, under torch.profiler: its wall time split into local training,
@@ -44,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -85,6 +95,18 @@ SERVE_BATCH, SERVE_SEQ = 4, 2048
 FLASH_TIME_MODES = {"causal": (True, None, None), "window512": (True, 512, None)}
 DECODE_PROMPT, DECODE_GEN = 64, 32
 GEMMA_PARAMS = 8_537_680_896
+# the SSD scan: (B, S, H, P, G, N) checked on the card — mamba2-780m's and
+# zamba2-1.2b's heads, a grouped case, two ragged S — at two input scales:
+# the tests' (dt in [0.1, 0.6], A in [-0.6, -0.1]) and the model's (dt =
+# softplus of N(0, 1), A = -linspace(1, 16) as init_mamba_block makes it)
+SSD_CHECK_SHAPES = [(1, 2048, 48, 64, 1, 128), (1, 2048, 64, 64, 1, 64),
+                    (1, 1024, 48, 64, 2, 128), (1, 2000, 48, 64, 1, 128),
+                    (1, 77, 64, 64, 1, 64)]
+SSD_SCALES = ("tests", "model")
+SSD_CHUNK = 128
+# mamba2-780m's prefill shape, timed: (B, S, H, P, G, N)
+SSD_TIME_SHAPE = (SERVE_BATCH, SERVE_SEQ, 48, 64, 1, 128)
+SSM_MODELS = {"mamba2-780m": 780_148_992, "zamba2-1.2b": 1_104_937_856}
 
 
 def emit(phase: str, **fields) -> None:
@@ -450,8 +472,8 @@ def time_flash(torch, dev, gen, flush, smi):
 
 def profile_call(torch, fn):
     """One call of ``fn`` under torch.profiler: its wall time, the
-    device's busy share, and device time split into the flash kernel,
-    matrix products (cuBLAS) and the rest."""
+    device's busy share, and device time split into the flash and SSD
+    kernels, matrix products (cuBLAS) and the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -465,12 +487,13 @@ def profile_call(torch, fn):
         return dict(wall_ms=wall_ms, device_busy_ms="not measured")
     busy = sum(ms for _, ms, _ in kernels)
     flash = sum(ms for name, ms, _ in kernels if "flash_fwd_kernel" in name)
+    ssd = sum(ms for name, ms, _ in kernels if "ssd_scan_kernel" in name)
     gemm = sum(ms for name, ms, _ in kernels
                if any(t in name.lower() for t in ("gemm", "gemv", "xmma", "cutlass", "nvjet")))
     return dict(wall_ms=wall_ms, device_busy_ms=busy, device_busy_share=busy / wall_ms,
                 launches=sum(c for _, _, c in kernels),
-                flash_ms=flash, flash_share=flash / busy, gemm_ms=gemm, gemm_share=gemm / busy,
-                other_ms=busy - flash - gemm,
+                flash_ms=flash, flash_share=flash / busy, ssd_ms=ssd, ssd_share=ssd / busy,
+                gemm_ms=gemm, gemm_share=gemm / busy, other_ms=busy - flash - ssd - gemm,
                 top_kernels=[{"name": n[:100], "ms": ms, "count": c} for n, ms, c in kernels[:10]])
 
 
@@ -620,6 +643,276 @@ def serve_agree(torch, dev):
         check(err <= 2e-3, f"{arch} smoke prefill: card and CPU differ by {err}")
 
 
+# --- the SSD scan (SSM serving path) --------------------------------------------------
+def ssd_inputs(torch, gen, dev, b, s, h, p, g, n, dtype, scale):
+    """x, dt, A, B, C at the tests' or the model's input scale."""
+    x = (torch.randn((b, s, h, p), generator=gen, device=dev) * 0.5).to(dtype)
+    Bm = (torch.randn((b, s, g, n), generator=gen, device=dev) * 0.5).to(dtype)
+    Cm = (torch.randn((b, s, g, n), generator=gen, device=dev) * 0.5).to(dtype)
+    if scale == "tests":
+        dt = torch.rand((b, s, h), generator=gen, device=dev) * 0.5 + 0.1
+        A = -(torch.rand((h,), generator=gen, device=dev) * 0.5 + 0.1)
+    else:
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+        A = -torch.linspace(1.0, 16.0, h, device=dev)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_errors(torch, y, state, x, dt, A, Bm, Cm, init, steps: bool):
+    """The kernel's y and final state against the float32 chunked scan
+    (padded at a ragged S) and, with ``steps``, against S steps of
+    ``ssd_decode_step`` (the naive recurrence) on the same input values.
+    Each element must lie within the float32 rounding limit
+    (``ssd_rounding_limit``), plus half a bfloat16 ulp of y in bfloat16.
+    Returns ({what: max abs error}, {what: max abs value}, ok)."""
+    from repro_torch.kernels.ssd_ref import ssd_padded, ssd_rounding_limit, ssd_steps
+
+    args = (x.float(), dt, A, Bm.float(), Cm.float())
+    y_lim, s_lim = ssd_rounding_limit(*args, SSD_CHUNK, init)
+    wants = {"chunked": ssd_padded(*args, SSD_CHUNK, init)}
+    if y.dtype == torch.bfloat16:
+        y_lim = y_lim + BF16_HALF_ULP * wants["chunked"][0].abs()
+    if steps:
+        wants["steps"] = ssd_steps(*args, init)
+    errs, scales, ok = {}, {}, True
+    for what, (y_want, s_want) in wants.items():
+        for part, got, want, lim in (("y", y, y_want, y_lim), ("state", state, s_want, s_lim)):
+            err = (got.float() - want).abs()
+            errs[f"{part}_vs_{what}"] = float(err.max())
+            scales[f"{part}_vs_{what}"] = float(want.abs().max())
+            ok = ok and bool((err <= lim).all())
+    return errs, scales, ok
+
+
+def check_ssd(torch, dev, gen):
+    from repro_torch.kernels.ssd import ssd_scan
+
+    for b, s, h, p, g, n in SSD_CHECK_SHAPES:
+        for scale in SSD_SCALES:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, b, s, h, p, g, n, dtype, scale)
+                for init in (None, torch.randn((b, h, p, n), generator=gen, device=dev) * 0.5):
+                    y, state = ssd_scan(x, dt, A, Bm, Cm, SSD_CHUNK, init)
+                    torch.cuda.synchronize()
+                    check(y.shape == x.shape and y.dtype == dtype and state.shape == (b, h, p, n),
+                          f"ssd output {tuple(y.shape)} {y.dtype} {tuple(state.shape)}")
+                    check(bool(torch.isfinite(y.float()).all() and torch.isfinite(state).all()),
+                          "non-finite ssd output")
+                    errs, scales, ok = ssd_errors(torch, y, state, x, dt, A, Bm, Cm, init, True)
+                    emit("check", kernel="ssd_scan", shape=[b, s, h, p, g, n], chunk=SSD_CHUNK,
+                         dtype=str(dtype), inputs=scale, initial_state=init is not None,
+                         max_abs_err=errs, max_abs_want=scales, ok=ok)
+                    check(ok, f"ssd_scan disagrees with its plain version at {(b, s, h, p, g, n)} "
+                              f"{dtype} {scale} init={init is not None}: {errs}")
+                del x, dt, A, Bm, Cm
+
+
+def ssd_bound_ms(b, s, h, p, g, n, chunk, itemsize):
+    """Least time for one scan: x, dt, B, C read once, y and the float32
+    final state written once, against the FLOPs of the TPU kernel's four
+    products per (batch, head, chunk), 2Q^2 N + 2Q^2 P + 4QPN, at the
+    bfloat16 tensor-core rate; returns (ms, bound_by, bytes, flops)."""
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * itemsize + 4 * b * s * h + 4 * b * h * p * n
+    nchunks = -(-s // chunk)
+    flops = b * h * nchunks * (2.0 * chunk * chunk * n + 2.0 * chunk * chunk * p
+                               + 4.0 * chunk * p * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def time_ssd(torch, dev, gen, flush, smi):
+    """The kernel at mamba2-780m's prefill shape in bfloat16, beside its
+    plain version and its bound.  No single PyTorch call computes the
+    scan, so there is no library time."""
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.kernels.ssd_ref import ssd_ref
+
+    b, s, h, p, g, n = SSD_TIME_SHAPE
+    x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, b, s, h, p, g, n, torch.bfloat16, "model")
+    y, state = ssd_scan(x, dt, A, Bm, Cm, SSD_CHUNK)
+    errs, scales, ok = ssd_errors(torch, y, state, x, dt, A, Bm, Cm, None, False)
+    check(ok, f"ssd_scan at the prefill shape: {errs}")
+    kern = time_ms(torch, lambda: ssd_scan(x, dt, A, Bm, Cm, SSD_CHUNK), flush)
+    plain = time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, SSD_CHUNK), flush)
+    bound, bound_by, nbytes, flops = ssd_bound_ms(b, s, h, p, g, n, SSD_CHUNK, 2)
+    row = dict(shape=[b, s, h, p, g, n], chunk=SSD_CHUNK, dtype="torch.bfloat16", inputs="model",
+               bytes=nbytes, flops=flops, bound_ms=bound, bound_by=bound_by, ms=kern,
+               plain_ms=plain, library_ms=None,
+               library_note="no single PyTorch call computes the SSD scan",
+               max_abs_err=errs["y_vs_chunked"], max_abs_err_state=errs["state_vs_chunked"],
+               achieved_TFLOPs=flops / (kern * 1e-3) / 1e12, roofline_share=bound / kern,
+               nvidia_smi=smi)
+    emit("time", kernel="ssd_scan", **row)
+    del x, dt, A, Bm, Cm, y, state
+    return row
+
+
+def cache_mb(cache) -> float:
+    from repro_torch.tree import tree_leaves
+
+    return sum(l.numel() * l.element_size() for l in tree_leaves(cache)) / 1e6
+
+
+def ssm_serve(torch, dev, smi):
+    """mamba2-780m and zamba2-1.2b at full width and depth on the card, in
+    bfloat16: prefill through the SSD kernel (and zamba2's shared
+    attention through the flash kernel), then greedy decoding against the
+    recurrent cache.  Returns the SSD launches of the phase."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.models.nn import count_params, tree_cast
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    ssd_scan.launches = 0
+    flash_attention.launches = 0
+    expect_ssd = expect_flash = 0
+    for arch, n_expected in SSM_MODELS.items():
+        cfg = get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg, ssd_impl="pallas", attn_impl="pallas")
+        check(model.device.type == "cuda" and model.dtype == torch.bfloat16,
+              f"{arch} on {model.device} in {model.dtype}")
+        params32 = model.init(gen)
+        params = tree_cast(params32, torch.bfloat16)
+        del params32
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        n_params = count_params(params)
+        check(n_params == n_expected, f"{arch} has {n_params} parameters")
+        check(all(l.is_cuda and l.dtype == torch.bfloat16 for l in tree_leaves(params)),
+              "params not bfloat16 on the card")
+        attn_uses = getattr(model, "n_attn_uses", 0)
+        emit("ssm_setup", arch=arch, params=n_params, mamba_layers=cfg.num_layers,
+             attn_uses=attn_uses, init_s=time.perf_counter() - t0,
+             param_GB=sum(l.numel() * l.element_size() for l in tree_leaves(params)) / 1e9,
+             peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+
+        step = make_prefill_step(model)
+        calls = 0
+        for s in (SERVE_SEQ, 2000):
+            tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, s), generator=gen, device=dev)
+            logits = step(params, {"tokens": tokens})           # warm-up
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                w0 = time.perf_counter()
+                logits = step(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - w0))
+            calls += 4
+            check(logits.shape == (SERVE_BATCH, cfg.vocab_size), f"logits {tuple(logits.shape)}")
+            check(bool(torch.isfinite(logits.float()).all()), "non-finite prefill logits")
+            prof = {}
+            if s == SERVE_SEQ:
+                prof = profile_call(torch, lambda: step(params, {"tokens": tokens}))
+                calls += 1
+            ms = statistics.median(times)
+            emit("ssm_prefill", arch=arch, batch=SERVE_BATCH, seq=s, ms=ms, ms_all=times,
+                 tokens_per_s=SERVE_BATCH * s / (ms * 1e-3), nvidia_smi=smi, profile=prof)
+        expect_ssd += cfg.num_layers * calls
+        expect_flash += attn_uses * calls
+        check(ssd_scan.launches == expect_ssd and flash_attention.launches == expect_flash,
+              f"{arch} prefill: {ssd_scan.launches} ssd and {flash_attention.launches} flash "
+              f"launches, expected {expect_ssd} and {expect_flash}")
+
+        serve_step = make_serve_step(model)
+        prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, DECODE_PROMPT), generator=gen,
+                               device=dev)
+        max_len = DECODE_PROMPT + DECODE_GEN
+        cache = model.init_cache(SERVE_BATCH, max_len)
+        size_mb = cache_mb(cache)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        for t in range(DECODE_PROMPT):                     # teacher-forced prompt
+            logits, cache = serve_step(params, prompt[:, t:t + 1], cache, t)
+        torch.cuda.synchronize()
+        prompt_s = time.perf_counter() - w0
+        w0 = time.perf_counter()
+        out = []
+        tok = torch.argmax(logits, dim=-1, keepdim=True)
+        for t in range(DECODE_PROMPT, max_len):            # greedy generation
+            out.append(tok)
+            logits, cache = serve_step(params, tok, cache, t)
+            tok = torch.argmax(logits, dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - w0
+        toks = torch.cat(out, dim=1)
+        spare = tree_map(torch.clone, cache)
+        prof = profile_call(torch, lambda: serve_step(params, tok, spare, max_len - 1))
+        del spare
+        finite = bool(torch.isfinite(logits.float()).all())
+        in_range = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+        emit("ssm_decode", arch=arch, batch=SERVE_BATCH, prompt=DECODE_PROMPT,
+             generated=DECODE_GEN, cache_MB=size_mb,
+             prompt_tokens_per_s=SERVE_BATCH * DECODE_PROMPT / prompt_s,
+             tokens_per_s=SERVE_BATCH * DECODE_GEN / gen_s, ms_per_step=1e3 * gen_s / DECODE_GEN,
+             finite=finite, tokens_in_range=in_range, sample=toks[0, :12].tolist(),
+             nvidia_smi=smi, profile=prof)
+        check(finite, "non-finite decode logits")
+        check(in_range, "generated token ids out of range")
+        check(ssd_scan.launches == expect_ssd and flash_attention.launches == expect_flash,
+              f"{arch} decode launched a kernel")
+        del params, cache, model, step, serve_step
+        torch.cuda.empty_cache()
+
+    launches = ssd_scan.launches
+    emit("ssm_serve", ssd_scan_launches=launches, expected_ssd=expect_ssd,
+         flash_attention_launches=flash_attention.launches, expected_flash=expect_flash,
+         peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
+def ssm_agree(torch, dev):
+    """SSM prefill (the SSD kernel) against teacher-forced decode (the
+    recurrence, no kernel) at full width in float32, and smoke configs on
+    the card against the CPU at a ragged S."""
+    from repro_torch.configs import build_model, get_config, get_smoke_config
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_map
+
+    # mamba2 cut to 2 layers; zamba2 to 7, one group of 6 and a remainder
+    # of 1, so the shared attention block runs at two depths
+    for arch, layers in (("mamba2-780m", 2), ("zamba2-1.2b", 7)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        model = build_model(cfg, ssd_impl="pallas", attn_impl="pallas", dtype=torch.float32)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = model.init(gen)
+        prompt = torch.randint(0, cfg.vocab_size, (2, DECODE_PROMPT), generator=gen, device=dev)
+        prefill = make_prefill_step(model)(params, {"tokens": prompt})
+        step = make_serve_step(model)
+        cache = model.init_cache(2, DECODE_PROMPT, dtype=torch.float32)
+        for t in range(DECODE_PROMPT):
+            logits, cache = step(params, prompt[:, t:t + 1], cache, t)
+        scale = float(prefill.abs().max())
+        err = float((prefill - logits).abs().max())
+        ok = err <= 2e-3 * scale
+        emit("ssm_agree", what=f"{arch} full width, {layers} layers, f32: prefill vs decode at 63",
+             max_abs_err=err, max_abs_logit=scale, limit=2e-3 * scale, ok=ok)
+        check(ok, f"{arch}: prefill and decode logits differ by {err} (largest logit {scale})")
+        del params, cache, model
+
+    for arch in SSM_MODELS:
+        scfg = get_smoke_config(arch)
+        kw = dict(ssd_impl="pallas", attn_impl="pallas", dtype=torch.float32)
+        cpu = build_model(scfg, device="cpu", **kw)
+        card = build_model(scfg, **kw)
+        p_cpu = cpu.init(torch.Generator().manual_seed(0))
+        tokens = torch.randint(0, scfg.vocab_size, (2, 100),
+                               generator=torch.Generator().manual_seed(2))
+        want = make_prefill_step(cpu)(p_cpu, {"tokens": tokens})
+        got = make_prefill_step(card)(tree_map(lambda p: p.to(dev), p_cpu), {"tokens": tokens})
+        err = float((got.cpu() - want).abs().max())
+        emit("ssm_agree", what=f"{arch} smoke config, f32, S=100: card vs CPU",
+             max_abs_err=err, limit=2e-3, ok=err <= 2e-3)
+        check(err <= 2e-3, f"{arch} smoke prefill: card and CPU differ by {err}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -651,8 +944,9 @@ def main() -> int:
 
     # 2. build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as ex:
-        libs = dict(zip(("aggregate", "flash"), ex.map(build.build, ("aggregate", "flash"))))
+    sources = ("aggregate", "flash", "ssd")
+    with ThreadPoolExecutor(max_workers=len(sources)) as ex:
+        libs = dict(zip(sources, ex.map(build.build, sources)))
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()})
 
@@ -663,11 +957,13 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     agg_err = check_aggregate(torch, dev, gen, main_shapes)
     check_flash(torch, dev, gen)
+    check_ssd(torch, dev, gen)
 
     # 4. times: kernel, plain version, one library call (never used by the port)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)   # 256 MB > L2
     agg_timed = time_aggregate(torch, dev, gen, flush, smi, main_shapes)
     flash_timed = time_flash(torch, dev, gen, flush, smi)
+    ssd_row = time_ssd(torch, dev, gen, flush, smi)
     del flush
 
     # 5-6. the FedLEO path, and a small round against the CPU
@@ -677,6 +973,12 @@ def main() -> int:
     # 7-8. the serving path, and its agreement checks
     flash_launches = serve(torch, dev, smi)
     serve_agree(torch, dev)
+    gc.collect()                # gemma's weights are gone before the SSM phases
+    torch.cuda.empty_cache()
+
+    # 9-10. the SSM serving path, and its agreement checks
+    ssd_launches = ssm_serve(torch, dev, smi)
+    ssm_agree(torch, dev)
 
     agg_row = agg_timed[(SCENARIO["sats_per_plane"], n_main, torch.float32)]
     flash_row = flash_timed["causal"]
@@ -708,6 +1010,20 @@ def main() -> int:
         "bound_ms": flash_row["bound_ms"],
         "bound_by": flash_row["bound_by"],
         "library_ms": flash_row["library_ms"],
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:66",
+        "tpu": "src/repro/kernels/ssd.py::ssd_scan",
+        "launches": ssd_launches,
+        "max_abs_err": ssd_row["max_abs_err"],
+        "max_err": ssd_row["max_abs_err"],
+        "ms": ssd_row["ms"],
+        "plain_ms": ssd_row["plain_ms"],
+        "bound_ms": ssd_row["bound_ms"],
+        "bound_by": ssd_row["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

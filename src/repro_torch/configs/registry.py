@@ -2,8 +2,8 @@
 
 The counterpart of ``src/repro/configs/registry.py``.  Importing it
 imports no model module: ``build_model`` imports the one it builds.
-Only the dense family is ported; the others raise, naming the ROADMAP
-item that ports them.
+The dense, ssm and hybrid families are ported; the others raise, naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -33,8 +33,6 @@ _NOT_PORTED = {
     "moe": "MoE (ROADMAP §A item 6c)",
     "vlm": "the VLM stub (ROADMAP §A item 6c)",
     "audio": "EncoderDecoder (ROADMAP §A item 6c)",
-    "ssm": "Mamba2Model (ROADMAP §A item 6b)",
-    "hybrid": "Zamba2Model (ROADMAP §A item 6c)",
 }
 
 
@@ -54,6 +52,7 @@ def build_model(
     cfg: ArchConfig,
     *,
     attn_impl: str = "xla",
+    ssd_impl: str = "xla",
     dtype: Optional[torch.dtype] = None,
     sliding_window: Optional[int] = None,
     device: Optional[Union[str, torch.device]] = None,
@@ -69,6 +68,15 @@ def build_model(
         from repro_torch.models.transformer import Transformer
 
         return Transformer(cfg, attn_impl=attn_impl, dtype=dtype,
+                           sliding_window=sliding_window, device=device)
+    if cfg.family == "ssm":
+        from repro_torch.models.mamba2 import Mamba2Model
+
+        return Mamba2Model(cfg, dtype=dtype, ssd_impl=ssd_impl, device=device)
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import Zamba2Model
+
+        return Zamba2Model(cfg, dtype=dtype, attn_impl=attn_impl, ssd_impl=ssd_impl,
                            sliding_window=sliding_window, device=device)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(

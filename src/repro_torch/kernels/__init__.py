@@ -8,10 +8,14 @@
     sliding window, tanh soft-cap): the attention of the LLM zoo's
     prefill.  Port of the Pallas kernel
     ``src/repro/kernels/flash.py::flash_attention``.
+  * ``ssd`` — the Mamba2 SSD chunked scan (an initial state in, y and
+    the final state out, in one launch): the sequence mixer of the SSM
+    and hybrid models' prefill.  Port of the Pallas kernel
+    ``src/repro/kernels/ssd.py::ssd_scan``.
 
 Each kernel ships as ``<name>.py`` (the wrapper that launches
 ``csrc/<name>.cu``), ``<name>_ops.py`` (dispatch: the kernel for CUDA
 tensors, the plain version for CPU tensors) and ``<name>_ref.py`` (the
 plain PyTorch version).  ``build.py`` compiles the sources with ``nvcc``
-at first use.  The SSD kernel is not ported yet.
+at first use.
 """

@@ -126,6 +126,21 @@ def apply_embedding(
     return p["table"][tokens].to(dtype)
 
 
+def init_stacked(rng: torch.Generator, init_one, count: int, device: torch.device) -> PyTree:
+    """``count`` draws of ``init_one(rng)`` stacked on a new leading
+    axis, filled one at a time on ``device`` (the peak is the stack
+    plus one draw), as the reference's ``jax.vmap`` init lays them out."""
+    stacked = None
+    for i in range(count):
+        one = init_one(rng)
+        if stacked is None:
+            stacked = tree_map(lambda p: torch.empty((count, *p.shape), dtype=p.dtype,
+                                                     device=device), one)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, one)
+        del one         # before the next draw, so at most one is alive
+    return stacked
+
+
 def count_params(params: PyTree) -> int:
     return sum(p.numel() for p in tree_leaves(params))
 

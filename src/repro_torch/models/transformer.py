@@ -95,18 +95,9 @@ class Transformer:
         dev = self.device
         embed = tree_map(lambda p: p.to(dev), nn.init_embedding(rng, cfg.vocab_size,
                                                                 cfg.d_model))
-        layers = None
-        for i in range(self.num_units):
-            unit = self._init_unit(rng)
-            if layers is None:
-                layers = tree_map(
-                    lambda p: torch.empty((self.num_units, *p.shape), dtype=p.dtype,
-                                          device=dev), unit)
-            tree_map(lambda dst, src: dst[i].copy_(src), layers, unit)
-            del unit        # before the next draw, so at most one unit is alive
         params = {
             "embed": embed,
-            "layers": layers,
+            "layers": nn.init_stacked(rng, self._init_unit, self.num_units, dev),
             "ln_final": tree_map(lambda p: p.to(dev), nn.init_rmsnorm(cfg.d_model)),
         }
         if not cfg.tie_embeddings:

@@ -4,7 +4,8 @@ package, and its copied numpy modules stay verbatim copies.
   * A subprocess blocks ``jax*`` and ``repro``/``repro.*`` in
     ``sys.meta_path``, imports repro_torch and runs one CPU FedLEO round;
     another imports the serving slice (configs, transformer, serving
-    steps) and serves a smoke gemma on the CPU.
+    steps) and serves a smoke gemma on the CPU; a third prefills and
+    decodes smoke mamba2 and zamba2 models on the CPU.
   * An AST scan of every module of the port and of ``chip_smoke.py``
     finds no import of jax or of the reference package.
   * Every copied module equals its reference file with the imports
@@ -147,3 +148,34 @@ def test_serving_slice_runs_with_jax_and_reference_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ISOLATED-SERVE-OK" in proc.stdout
+
+
+_ISOLATED_SSM = _ISOLATED_RUN[:_ISOLATED_RUN.index("import repro_torch")] + textwrap.dedent("""
+    from repro_torch.configs import build_model, get_smoke_config
+    from repro_torch.train.steps import make_greedy_decode, make_prefill_step
+
+    for arch in ("mamba2-780m", "zamba2-1.2b"):
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg, attn_impl="pallas", ssd_impl="pallas", device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                               generator=torch.Generator().manual_seed(1))
+        logits = make_prefill_step(model)(params, {"tokens": tokens})
+        cache = model.init_cache(2, 8)
+        toks, cache = make_greedy_decode(model, 3)(params, tokens[:, :1], cache, 0)
+        assert logits.shape == (2, cfg.vocab_size) and toks.shape == (2, 3)
+        assert bool(torch.isfinite(logits.float()).all())
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not loaded, loaded
+    print("ISOLATED-SSM-OK")
+""")
+
+
+def test_ssm_serving_runs_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _ISOLATED_SSM], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ISOLATED-SSM-OK" in proc.stdout

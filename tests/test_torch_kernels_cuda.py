@@ -1,4 +1,4 @@
-"""The CUDA aggregation kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: each test skips where no NVIDIA GPU is present (the
 kernel has no CPU mode).  The file imports neither jax nor the reference
@@ -6,9 +6,13 @@ package, so it runs on a machine with the card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: float32 relative to the largest output, 1e-5 (the kernel and
-cuBLAS sum the K products in their own orders); bfloat16 at most 1 ulp
-(both accumulate in float32 and round once).
+Tolerances: aggregation in float32 relative to the largest output, 1e-5
+(the kernel and cuBLAS sum the K products in their own orders), in
+bfloat16 at most 1 ulp (both accumulate in float32 and round once).
+Flash attention and the SSD scan are held to their float32 plain
+versions on the same input values, within float32 rounding
+(``assert_flash_close``, ``assert_ssd_close``) plus, in bfloat16, half
+an ulp of each output.
 """
 import pytest
 import torch
@@ -212,4 +216,152 @@ def test_prefill_on_the_card_launches_flash_per_layer(cuda_device):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
     assert flash_attention.launches == before + cfg.num_layers
+    assert float((got.cpu() - want).abs().max()) <= 2e-3
+
+
+# --- SSD scan ----------------------------------------------------------------------
+# (b, s, h, p, g, n, chunk): mamba2-780m's and zamba2-1.2b's heads, a grouped
+# case, the smoke configs' heads, the four of tests/test_kernels.py, and ragged
+# S (no chunk or tile divides it)
+SSD_SHAPES = [(1, 512, 48, 64, 1, 128, 128), (1, 512, 64, 64, 1, 64, 128),
+              (2, 256, 8, 64, 2, 128, 128), (2, 100, 16, 32, 1, 32, 32),
+              (2, 100, 32, 32, 1, 16, 32),
+              (1, 64, 2, 8, 1, 8, 16), (2, 128, 4, 16, 2, 8, 32), (1, 256, 4, 32, 4, 16, 64),
+              (1, 128, 8, 16, 1, 32, 128), (1, 77, 4, 64, 2, 128, 128)]
+
+
+def ssd_inputs(gen, dev, b, s, h, p, g, n, dtype, scale):
+    """x, dt, A, B, C: at the tests' scale (dt in [0.1, 0.6], A in [-0.6,
+    -0.1]) or at the model's (dt = softplus of N(0, 1), A = -linspace(1, 16))."""
+    x = (torch.randn((b, s, h, p), generator=gen, device=dev) * 0.5).to(dtype)
+    Bm = (torch.randn((b, s, g, n), generator=gen, device=dev) * 0.5).to(dtype)
+    Cm = (torch.randn((b, s, g, n), generator=gen, device=dev) * 0.5).to(dtype)
+    if scale == "tests":
+        dt = torch.rand((b, s, h), generator=gen, device=dev) * 0.5 + 0.1
+        A = -(torch.rand((h,), generator=gen, device=dev) * 0.5 + 0.1)
+    else:
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+        A = -torch.linspace(1.0, 16.0, h, device=dev)
+    return x, dt, A, Bm, Cm
+
+
+def assert_ssd_close(got, want, limit, dtype):
+    """Within the float32 rounding limit of ``ssd_rounding_limit`` and,
+    in bfloat16, the kernel's one rounding of y (half an ulp)."""
+    if dtype == torch.bfloat16:
+        limit = limit + 2.0 ** -8 * want.abs()
+    err = (got.float() - want).abs()
+    assert bool((err <= limit).all()), float((err - limit).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", ["tests", "model"])
+@pytest.mark.parametrize("with_init", [False, True], ids=["zeros", "initial-state"])
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_version(cuda_device, shape, dtype, with_init, scale):
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.kernels.ssd_ref import ssd_padded, ssd_rounding_limit, ssd_steps
+
+    b, s, h, p, g, n, chunk = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(s + h + n)
+    x, dt, A, Bm, Cm = ssd_inputs(gen, cuda_device, b, s, h, p, g, n, dtype, scale)
+    init = (torch.randn((b, h, p, n), generator=gen, device=cuda_device) * 0.5
+            if with_init else None)
+    before = ssd_scan.launches
+    y, state = ssd_scan(x, dt, A, Bm, Cm, chunk, init)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.shape == x.shape and y.dtype == dtype and state.dtype == torch.float32
+    args = (x.float(), dt, A, Bm.float(), Cm.float())
+    y_want, s_want = ssd_padded(*args, chunk, init)
+    y_lim, s_lim = ssd_rounding_limit(*args, chunk, init)
+    assert_ssd_close(y, y_want, y_lim, dtype)
+    assert_ssd_close(state, s_want, s_lim, torch.float32)
+    y_steps, s_steps = ssd_steps(*args, init)          # the per-step recurrence
+    assert_ssd_close(y, y_steps, y_lim, dtype)
+    assert_ssd_close(state, s_steps, s_lim, torch.float32)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_strided_views(cuda_device):
+    """x, B and C sliced out of one convolution output, as the Mamba2
+    block hands them over, read in place."""
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.kernels.ssd_ref import ssd_padded, ssd_rounding_limit
+
+    b, s, h, p, g, n = 2, 130, 8, 32, 2, 16
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    conv = torch.randn((b, s, h * p + 2 * g * n), generator=gen, device=cuda_device) * 0.5
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    Bm = conv[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    Cm = conv[..., h * p + g * n:].reshape(b, s, g, n)
+    assert not x.is_contiguous() and x.stride(1) == conv.shape[-1]
+    dt = (torch.rand((b, h, s), generator=gen, device=cuda_device) * 0.5 + 0.1).transpose(1, 2)
+    A = -(torch.rand((h,), generator=gen, device=cuda_device) * 0.5 + 0.1)
+    y, state = ssd_scan(x, dt, A, Bm, Cm, 32)
+    y_want, s_want = ssd_padded(x, dt, A, Bm, Cm, 32)
+    y_lim, s_lim = ssd_rounding_limit(x, dt, A, Bm, Cm, 32)
+    assert_ssd_close(y, y_want, y_lim, torch.float32)
+    assert_ssd_close(state, s_want, s_lim, torch.float32)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.ssd import ssd_scan
+
+    x = torch.zeros((1, 16, 4, 32), device=cuda_device)
+    dt = torch.zeros((1, 16, 4), device=cuda_device)
+    A = torch.zeros((4,), device=cuda_device)
+    bc = torch.zeros((1, 16, 2, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        ssd_scan(x.half(), dt, A, bc.half(), bc.half())
+    with pytest.raises(TypeError, match="dt"):
+        ssd_scan(x, dt.bfloat16(), A, bc, bc)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_scan(x[..., :24], dt, A, bc, bc)
+    with pytest.raises(ValueError, match="state_dim"):
+        ssd_scan(x, dt, A, torch.zeros((1, 16, 2, 256), device=cuda_device),
+                 torch.zeros((1, 16, 2, 256), device=cuda_device))
+    with pytest.raises(ValueError, match="last axis"):
+        ssd_scan(x.transpose(1, 3).contiguous().transpose(1, 3), dt, A, bc, bc)
+    with pytest.raises(ValueError, match="H % G"):
+        ssd_scan(x[:, :, :3], dt[:, :, :3], A[:3], bc, bc)
+    with pytest.raises(ValueError, match="initial_state"):
+        ssd_scan(x, dt, A, bc, bc, initial_state=torch.zeros((1, 4, 32, 8), device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(x.cpu(), dt.cpu(), A.cpu(), bc.cpu(), bc.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_ssm_prefill_on_the_card_launches_ssd_per_layer(cuda_device, arch):
+    """A smoke model's prefill through ssd_impl="pallas" at a ragged S:
+    one SSD launch per Mamba layer (and one flash launch per use of
+    zamba2's shared attention block), and the logits of the CPU run
+    within 2e-3."""
+    from repro_torch.configs import build_model, get_smoke_config
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.train.steps import make_prefill_step
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke_config(arch)
+    kw = dict(attn_impl="pallas", ssd_impl="pallas", dtype=torch.float32)
+    cpu = build_model(cfg, device="cpu", **kw)
+    card = build_model(cfg, **kw)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 77), generator=torch.Generator().manual_seed(1))
+    want = make_prefill_step(cpu)(params, {"tokens": tokens})
+    ssd_before, flash_before = ssd_scan.launches, flash_attention.launches
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = make_prefill_step(card)(tree_map(lambda p: p.to(cuda_device), params),
+                                      {"tokens": tokens})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert ssd_scan.launches == ssd_before + cfg.num_layers
+    assert flash_attention.launches == flash_before + getattr(card, "n_attn_uses", 0)
     assert float((got.cpu() - want).abs().max()) <= 2e-3
