@@ -8,12 +8,14 @@ script exits non-zero without a result line:
 
   1. device      — the card (nvidia-smi name and power limit, torch name).
   2. build       — nvcc builds src/repro_torch/kernels/csrc/aggregate.cu,
-                   flash.cu and ssd.cu afresh, all at once.
+                   flash.cu and ssd.cu afresh, all at once; ptxas's
+                   registers and spills of each flash kernel.
   3. check       — each kernel against its plain PyTorch version on the
                    card, at ragged shapes and at the main paths' shapes.
   4. time        — kernel, plain version and one library call (CUDA
                    events, L2 flushed before each launch, median of 30),
-                   beside the kernel's bound.
+                   beside the kernel's bound; flash at gemma-7b's and
+                   zamba2-1.2b's prefill shapes.
   5. main        — the FedLEO path: rounds on the quickstart scenario
                    with the full-width CNN and the CUDA aggregation
                    kernel, launch counts reset just before and read just
@@ -23,9 +25,10 @@ script exits non-zero without a result line:
                    package).
   7. serve       — the serving path: gemma-7b at full width and depth in
                    bfloat16, prefill through the CUDA flash kernel
-                   (``make_prefill_step``) and greedy decoding against
-                   the KV cache (``make_serve_step``), launch counts
-                   reset just before and read just after.
+                   (``make_prefill_step``; its tensor-core kernel alone,
+                   by the profile's kernel names) and greedy decoding
+                   against the KV cache (``make_serve_step``), launch
+                   counts reset just before and read just after.
   8. serve_agree — prefill (kernel) against teacher-forced decode (cache
                    path) at full width; smoke configs on the card
                    against the CPU.
@@ -56,6 +59,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -92,7 +96,14 @@ FLASH_F32_REL = 1e-5
 BF16_HALF_ULP = 2.0 ** -8
 # the serving path: gemma-7b prefill of 4 prompts of 2048 tokens
 SERVE_BATCH, SERVE_SEQ = 4, 2048
-FLASH_TIME_MODES = {"causal": (True, None, None), "window512": (True, 512, None)}
+# flash timed at the prefill shapes (B, S, H, G, D): gemma-7b, full and
+# window 512, and zamba2-1.2b's shared attention
+FLASH_TIME_CASES = {"causal": ((SERVE_BATCH, SERVE_SEQ, 16, 16, 256), True, None),
+                    "window512": ((SERVE_BATCH, SERVE_SEQ, 16, 16, 256), True, 512),
+                    "zamba2_causal": ((SERVE_BATCH, SERVE_SEQ, 32, 32, 64), True, None)}
+# the library's attention kernels by name (SDPA's flash, memory-efficient
+# and cuDNN kernels), which the port must never launch
+LIBRARY_ATTENTION = ("pytorch_flash", "fmha", "attentionkernel", "sdpa", "flash_attn")
 DECODE_PROMPT, DECODE_GEN = 64, 32
 GEMMA_PARAMS = 8_537_680_896
 # the SSD scan: (B, S, H, P, G, N) checked on the card — mamba2-780m's and
@@ -107,6 +118,31 @@ SSD_CHUNK = 128
 # mamba2-780m's prefill shape, timed: (B, S, H, P, G, N)
 SSD_TIME_SHAPE = (SERVE_BATCH, SERVE_SEQ, 48, 64, 1, 128)
 SSM_MODELS = {"mamba2-780m": 780_148_992, "zamba2-1.2b": 1_104_937_856}
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes of each flash kernel in ``nvcc -Xptxas
+    -v`` output, by name and integer template arguments (head dim, and the
+    key tile of the CUDA-core kernel), and any warning the assembler
+    printed."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = re.search(r"(flash_fwd(?:_tc)?_kernel)I(\w*?)EEEv", mangled)
+            args = ",".join(re.findall(r"Li(\d+)", m.group(2))) if m else ""
+            name = f"{m.group(1)}<{args}>" if m else mangled
+            out[name] = {}
+        elif name and "spill stores" in line:
+            words = line.split()
+            out[name]["spill_store_bytes"] = int(words[words.index("spill") - 2])
+            out[name]["spill_load_bytes"] = int(words[words.index("loads") - 3])
+        elif name and line.startswith("ptxas info") and "Used" in line:
+            words = line.split()
+            out[name]["registers"] = int(words[words.index("Used") + 1])
+        elif "warning" in line.lower():
+            out.setdefault("warnings", []).append(line.strip())
+    return out
 
 
 def emit(phase: str, **fields) -> None:
@@ -434,48 +470,51 @@ def check_flash(torch, dev, gen):
 
 
 def time_flash(torch, dev, gen, flush, smi):
-    """The kernel at the serving path's prefill shape, beside its plain
+    """The kernel at the serving paths' prefill shapes, beside its plain
     version, one SDPA call (a yardstick the port never calls) and its
-    bound; returns the rows by mode."""
+    bound; returns the rows by case."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash import flash_attention
     from repro_torch.kernels.flash_ref import flash_attention_ref
 
-    b, s, h, g, d = SERVE_BATCH, SERVE_SEQ, 16, 16, 256
-    q, k, v = flash_inputs(torch, gen, dev, b, s, h, g, d, torch.bfloat16)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pos = torch.arange(s, device=dev)
     rows = {}
-    for mode, (causal, window, cap) in FLASH_TIME_MODES.items():
-        err, scale, ok = flash_error(torch, q, k, v, causal, window, cap)
-        check(ok, f"flash {mode} at the prefill shape: {err} (largest output {scale})")
+    for case, ((b, s, h, g, d), causal, window) in FLASH_TIME_CASES.items():
+        q, k, v = flash_inputs(torch, gen, dev, b, s, h, g, d, torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        err, scale, ok = flash_error(torch, q, k, v, causal, window, None)
+        check(ok, f"flash {case} at the prefill shape: {err} (largest output {scale})")
         if window is None:
             lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         else:
+            pos = torch.arange(s, device=dev)
             band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
             lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
-        kern = time_ms(torch, lambda: flash_attention(q, k, v, causal, window, cap), flush)
-        plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal, window, cap), flush)
+        kern = time_ms(torch, lambda: flash_attention(q, k, v, causal, window, None), flush)
+        plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal, window, None), flush)
         lib = time_ms(torch, lib_fn, flush)
         bound, bound_by, nbytes, flops = flash_bound_ms(b, s, h, g, d, causal, window, 2,
                                                         BF16_FLOPS_PER_S)
-        row = dict(shape=[b, s, h, g, d], dtype="torch.bfloat16", mode=mode, bytes=nbytes,
+        row = dict(shape=[b, s, h, g, d], dtype="torch.bfloat16", mode=case, bytes=nbytes,
                    flops=flops, bound_ms=bound, bound_by=bound_by, ms=kern, plain_ms=plain,
                    library_ms=lib, max_abs_err=err, achieved_TFLOPs=flops / (kern * 1e-3) / 1e12,
                    roofline_share=bound / kern, nvidia_smi=smi)
         emit("time", kernel="flash_attention", **row)
-        rows[mode] = row
-    del q, k, v, qt, kt, vt
+        rows[case] = row
+        del q, k, v, qt, kt, vt
     return rows
 
 
 def profile_call(torch, fn):
     """One call of ``fn`` under torch.profiler: its wall time, the
-    device's busy share, and device time split into the flash and SSD
-    kernels, matrix products (cuBLAS) and the rest."""
+    device's busy share, and device time split into the flash kernels
+    (tensor-core and CUDA-core apart), the library's attention kernels,
+    the SSD kernel, matrix products (cuBLAS) and the rest."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.flash import KERNELS
+
+    tc_name, core_name = KERNELS[torch.bfloat16] + "<", KERNELS[torch.float32] + "<"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         w0 = time.perf_counter()
@@ -486,15 +525,38 @@ def profile_call(torch, fn):
     if not kernels:
         return dict(wall_ms=wall_ms, device_busy_ms="not measured")
     busy = sum(ms for _, ms, _ in kernels)
-    flash = sum(ms for name, ms, _ in kernels if "flash_fwd_kernel" in name)
+    library = [(n, ms, c) for n, ms, c in kernels
+               if any(t in n.lower() for t in LIBRARY_ATTENTION)]
+    ours = [(n, ms, c) for n, ms, c in kernels if (n, ms, c) not in library]
+    flash_tc = sum(ms for name, ms, _ in ours if tc_name in name)
+    flash_core = sum(ms for name, ms, _ in ours if core_name in name)
+    flash = flash_tc + flash_core
     ssd = sum(ms for name, ms, _ in kernels if "ssd_scan_kernel" in name)
     gemm = sum(ms for name, ms, _ in kernels
                if any(t in name.lower() for t in ("gemm", "gemv", "xmma", "cutlass", "nvjet")))
     return dict(wall_ms=wall_ms, device_busy_ms=busy, device_busy_share=busy / wall_ms,
                 launches=sum(c for _, _, c in kernels),
-                flash_ms=flash, flash_share=flash / busy, ssd_ms=ssd, ssd_share=ssd / busy,
+                flash_ms=flash, flash_share=flash / busy, flash_tc_ms=flash_tc,
+                flash_tc_launches=sum(c for n, _, c in ours if tc_name in n),
+                flash_core_ms=flash_core,
+                flash_core_launches=sum(c for n, _, c in ours if core_name in n),
+                library_attention=[n[:100] for n, _, _ in library],
+                ssd_ms=ssd, ssd_share=ssd / busy,
                 gemm_ms=gemm, gemm_share=gemm / busy, other_ms=busy - flash - ssd - gemm,
                 top_kernels=[{"name": n[:100], "ms": ms, "count": c} for n, ms, c in kernels[:10]])
+
+
+def check_tc_only(prof, launches, what):
+    """A profiled bf16 prefill ran its attention on the tensor-core flash
+    kernel alone: ``launches`` of it, no CUDA-core flash kernel and no
+    library attention kernel."""
+    if prof.get("device_busy_ms") == "not measured":
+        return
+    check(prof["flash_tc_launches"] == launches and prof["flash_core_launches"] == 0
+          and not prof["library_attention"],
+          f"{what}: {prof['flash_tc_launches']} tensor-core flash launches (expected "
+          f"{launches}), {prof['flash_core_launches']} CUDA-core, library "
+          f"{prof['library_attention']}")
 
 
 def serve(torch, dev, smi):
@@ -550,6 +612,7 @@ def serve(torch, dev, smi):
             if window is None and s == SERVE_SEQ:
                 prof = profile_call(torch, lambda: step(params, {"tokens": tokens}))
                 prefill_calls += 1
+                check_tc_only(prof, cfg.num_layers, "gemma-7b prefill")
             emit("prefill", window=window, batch=SERVE_BATCH, seq=s, ms=ms, ms_all=times,
                  tokens_per_s=SERVE_BATCH * s / (ms * 1e-3), nvidia_smi=smi, profile=prof)
 
@@ -812,6 +875,7 @@ def ssm_serve(torch, dev, smi):
             if s == SERVE_SEQ:
                 prof = profile_call(torch, lambda: step(params, {"tokens": tokens}))
                 calls += 1
+                check_tc_only(prof, attn_uses, f"{arch} prefill")
             ms = statistics.median(times)
             emit("ssm_prefill", arch=arch, batch=SERVE_BATCH, seq=s, ms=ms, ms_all=times,
                  tokens_per_s=SERVE_BATCH * s / (ms * 1e-3), nvidia_smi=smi, profile=prof)
@@ -948,7 +1012,8 @@ def main() -> int:
     with ThreadPoolExecutor(max_workers=len(sources)) as ex:
         libs = dict(zip(sources, ex.map(build.build, sources)))
     emit("build", seconds=time.perf_counter() - t0,
-         libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()})
+         libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()},
+         flash_ptxas=ptxas_summary(build.LOGS.get("flash", "")))
 
     # 3. each kernel against its plain version, on the card
     n_main = count_params(init_cnn(torch.Generator().manual_seed(0)))

@@ -4,14 +4,16 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o lib<name>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
 
 The library lands in ``build/repro_torch_kernels/<hash>/`` at the root
 of the checkout (or under ``$REPRO_TORCH_BUILD_DIR``), keyed by a hash
 of the source, the shared headers and the flags, so an edited source
 rebuilds and an unchanged one loads at once.  The build happens at
 first use, never at import.  A missing ``nvcc`` or a failed compile
-raises: there is no fallback.
+raises: there is no fallback.  What the compiler printed for a build of
+this process (``-Xptxas -v``: registers, spills and shared memory of
+each kernel) is kept in ``LOGS``.
 """
 from __future__ import annotations
 
@@ -28,13 +30,14 @@ from typing import Dict
 CSRC = Path(__file__).resolve().with_name("csrc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 CUDA_ROOTS = ("/usr/local/cuda",)
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}
 
 
 def build_dir() -> Path:
@@ -88,6 +91,7 @@ def build(name: str) -> Path:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
     os.replace(tmp, out)        # atomic: concurrent builders agree
+    LOGS[name] = proc.stdout
     return out
 
 

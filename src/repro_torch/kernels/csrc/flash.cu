@@ -9,45 +9,71 @@
 //     out[q]   = sum_k softmax_k(s[q, :] over visible k) * v[k]
 //
 // in float32 (scores, running max, denominator, accumulator), written in the
-// inputs' type (float or bfloat16).  The tensors are read in place through
-// their batch, sequence and head strides; the last axis is contiguous.
+// inputs' type.  The tensors are read in place through their batch, sequence
+// and head strides; the last axis is contiguous.  Any S: rows and keys past S
+// are zero-filled in shared memory, masked, and not written.  No padding copy
+// and no fallback.  Both kernels skip kv tiles wholly outside the causal /
+// window band and launch the longest causal q tiles first.  Masked scores are
+// -inf, with the max guarded so a row that has seen no visible key yet adds
+// nothing (the TPU kernel's finite -1e30 gives the same result wherever a row
+// has a visible key, and every row has one: its own position).
 //
-// Bound: at the serving shapes (S in the thousands, D = 256) the work is
+// Bound: at the serving shapes (S in the thousands, D = 64 to 256) the work is
 // 4 * D operations per visible (q, k) pair against 2 * D elements of q and o
 // per row, far above the card's operations-per-byte balance, so the bound is
-// the arithmetic.  This first kernel does that arithmetic on the CUDA cores
-// in float32 (fused multiply-adds), not on the tensor cores: simple and right
-// first, with wgmma, TMA and warp specialisation left for a later change.
+// the arithmetic: in bfloat16, the tensor cores' 989 TFLOP/s.  What holds
+// the bf16 kernel back from it is the softmax between the two products (the
+// exponentials and bf16 conversions run on pipes slower than the FMAs),
+// which the tensor cores wait on while a warpgroup runs it.
 //
-// Design:
+// bfloat16 (serving): flash_fwd_tc_kernel, both products on the tensor cores.
+//   * One block of two warpgroups (256 threads) per (128-row q tile, head,
+//     batch); each warpgroup owns 64 q rows and loops over 64-key tiles on
+//     its own, so one's softmax can run while the other multiplies.
+//   * S = Q K^T is wgmma m64n64k16 with Q and the K tile read from shared
+//     memory (both K-major); O += P V is wgmma m64nDk16 with P in registers
+//     and the V tile read from shared memory as the MN-major operand, so
+//     neither K nor V is transposed.
+//   * S never leaves registers: the accumulator fragment is soft-capped,
+//     masked and exponentiated in place (one FMA and one ex2 an element,
+//     the scale folded in), its row max reduced over the four lanes that
+//     share a row, and it becomes the A fragment of the second product
+//     directly.  Only tiles that cross the diagonal, the window edge or S pay
+//     for the mask; O is rescaled only when a row's max moved.
+//   * P = exp(S - m) is float32 and the denominator sums it in float32.  A
+//     single rounding of P to bf16 (what FlashAttention does) moves the
+//     output by up to ~60x the float32 limit the kernel is held to, so P goes
+//     in as two bf16 parts, hi = bf16(P) and lo = bf16(P - hi), both
+//     accumulated into the same float32 O: the float32 result for 1.5x the
+//     tensor work of one split (tests/test_torch_flash.py emulates both).
+//   * Copies are TMA: one thread issues Q once and K and V through a
+//     two-stage ring whose mbarriers track arrival (full) and release by all
+//     eight warps (empty), so the next tile lands while this one computes.
+//     TMA writes the 128-byte swizzle that wgmma reads (and that keeps the
+//     epilogue's shared-memory traffic conflict-free), and zero-fills rows
+//     past S and, at D = 32 (padded to 64), the columns past D.
+//   * Rows start on 16-byte boundaries (strides a multiple of 8 elements), as
+//     TMA requires.  At D = 256 the block holds Q 64 KB + 2 stages of K and V
+//     128 KB of the 227 KB; at D <= 64 two blocks share an SM.
+//
+// float32 (agreement checks): flash_fwd_kernel, the arithmetic on the CUDA
+//   cores in float32 FMAs, since no tensor-core format keeps float32 to 1e-5
+//   of the largest output (TF32 keeps about three decimal digits).
 //   * One block of 256 threads (16 x 16) per (64-row q tile, head, batch).
-//     Blocks run in no order; a loop over kv tiles inside the block takes the
-//     place of the TPU kernel's sequential kv grid axis.  Under a causal mask
-//     the longest q tiles are launched first.
 //   * The q tile and each K and V tile are staged in shared memory as 32-bit
-//     words (one float or two bfloat16), rows padded by one word so that the
-//     16 threads of a half-warp reading 16 rows hit 16 different banks.
+//     words, rows padded by one word so that the 16 threads of a half-warp
+//     reading 16 rows hit 16 different banks.
 //   * Thread (ty, tx) owns q rows ty + 16 i (i < 4), score columns
 //     tx + 16 j and output words tx + 16 w.  Row maxima and sums are reduced
 //     over the 16 tx lanes with warp shuffles; each thread keeps the running
 //     max and denominator of its four rows.
-//   * kv tiles wholly outside the causal / window band are skipped, not
-//     streamed.  Masked scores are -inf, with the max guarded so a row that
-//     has seen no visible key yet adds nothing (the TPU kernel's finite -1e30
-//     gives the same result wherever a row has a visible key, and every row
-//     has one: its own position).
-//   * Any S: rows and keys past S are zero-filled in shared memory, masked,
-//     and not written.  No padding copy and no fallback.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kBlockQ = 64;
-constexpr int kThreads = 256;
-constexpr int kRows = kBlockQ / 16;   // q rows per thread
 
 struct Params {
   int B, S, H, G;
@@ -58,7 +84,14 @@ struct Params {
   int window;                         // 0: no window
   float soft_cap;                     // 0: no cap
   float scale;
+  int q_slots, k_slots, v_slots;      // bf16: tensor-map dimensions of (seq, head, batch)
 };
+
+// --- float32: the CUDA-core kernel ----------------------------------------------------
+
+constexpr int kBlockQ = 64;
+constexpr int kThreads = 256;
+constexpr int kRows = kBlockQ / 16;   // q rows per thread
 
 template <typename T>
 struct Word;
@@ -71,20 +104,6 @@ struct Word<float> {
   }
   __device__ __forceinline__ static uint32_t pack(const float* v) {
     return __float_as_uint(v[0]);
-  }
-};
-
-template <>
-struct Word<__nv_bfloat16> {
-  static constexpr int kElems = 2;
-  // the element at the lower address is the low half (little endian)
-  __device__ __forceinline__ static void unpack(uint32_t w, float* out) {
-    out[0] = __uint_as_float(w << 16);
-    out[1] = __uint_as_float(w & 0xffff0000u);
-  }
-  __device__ __forceinline__ static uint32_t pack(const float* v) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(v[0], v[1]);  // round to nearest even
-    return *reinterpret_cast<uint32_t*>(&h);
   }
 };
 
@@ -249,18 +268,562 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const T* q, const T* k, const T* v, T* o, const Params& p,
+// --- bfloat16: the tensor-core kernel -------------------------------------------------
+
+constexpr int kTcBlockQ = 128;        // two warpgroups of 64 q rows
+constexpr int kTcBlockK = 64;         // keys per K/V tile
+constexpr int kTcThreads = 256;
+constexpr int kSwizzleRow = 128;      // bytes: 64 bf16, one 128-byte swizzle row
+constexpr int kEpilogueBarrier = 1;   // + the warpgroup (a named barrier; 0 is __syncthreads)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// arrive and expect `bytes` from the copies that complete on this barrier
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+template <int ID, int THREADS>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
+}
+
+// One TMA box of a (B, S, heads, D) tensor into shared memory, completing on
+// `bar`: 64 columns from `col`, a tile of rows from `s`, of head h in batch b.
+// `slots` says which tensor-map dimension (1-3) holds the sequence, head and
+// batch axes, two bits each (the host orders them by stride).
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int slots, int col,
+                                        int s, int h, int b, uint32_t bar) {
+  const int ss = slots & 3;
+  const int sh = (slots >> 2) & 3;
+  const int c1 = ss == 1 ? s : sh == 1 ? h : b;
+  const int c2 = ss == 2 ? s : sh == 2 ? h : b;
+  const int c3 = ss == 3 ? s : sh == 3 ? h : b;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a wgmma operand in the 128-byte swizzled
+// layout: start address, leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lead_bytes,
+                                               uint32_t stride_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lead_bytes >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((stride_bytes >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// Tiles live in shared memory as DP/64 column blocks of (rows x 64) bf16, one
+// 128-byte row per sequence position, with the 16-byte chunk c of row r stored
+// at chunk c ^ (r % 8): what a TMA copy with the 128-byte swizzle writes and
+// the wgmma descriptors above read, and a layout where the 8 rows that an
+// 8-lane phase of the epilogue touches fall in 8 different banks.
+template <int ROWS>
+__device__ __forceinline__ uint32_t tile_offset(int r, int chunk) {
+  return (chunk >> 3) * (ROWS * kSwizzleRow) + r * kSwizzleRow + (((chunk & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DP == 64) {
+    wgmma_rs_n64(o, a, db, 1);
+  } else if constexpr (DP == 128) {
+    wgmma_rs_n128(o, a, db, 1);
+  } else {
+    wgmma_rs_n256(o, a, db, 1);
+  }
+}
+
+// 2^x in one MUFU operation (relative error about 2^-22); 2^-inf = 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Thread t of warpgroup w owns, in every 64-wide accumulator, rows
+// 16 (t / 32 % 4) + t % 32 / 4 (+ 8) of the warpgroup's 64 and columns
+// 8 j + 2 (t % 4) (+ 1): register 4 j + e holds row + 8 (e / 2), column + e % 2.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)   // two blocks an SM at D <= 64
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                    Params p) {
+  constexpr int DP = D < 64 ? 64 : D;          // shared tiles and products are >= 64 wide
+  constexpr int BQ = kTcBlockQ;
+  constexpr int BK = kTcBlockK;
+  constexpr int Q_BYTES = BQ * DP * 2;
+  constexpr int KV_BYTES = BK * DP * 2;
+  constexpr int OREG = DP / 2;                 // accumulator floats a thread holds for O
+  constexpr float kNegInf = -INFINITY;
+  constexpr float kLog2e = 1.4426950408889634f;
+
+  // full[2]: a K/V stage has landed; empty[2]: all 8 warps are done with it
+  __shared__ __align__(8) uint64_t bars[5];
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // the swizzle is a function of the address bits, so tiles start on 1024 bytes
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t Qs = base;                    // then K stages 0, 1 and V stages 0, 1
+  const uint32_t Ks = base + Q_BYTES;
+  const uint32_t Vs = base + Q_BYTES + 2 * KV_BYTES;
+  const uint32_t full = smem_addr(&bars[0]);
+  const uint32_t empty = smem_addr(&bars[2]);
+  const uint32_t q_full = smem_addr(&bars[4]);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = h / (p.H / p.G);
+  const int q0 = qt * BQ;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int row_in_wg = 16 * (threadIdx.x / 32 % 4) + lane / 4;
+  const int col = 2 * (lane % 4);
+  const int wq0 = q0 + 64 * wg;                // this warpgroup's first and last row
+  const int wq1 = min(wq0 + 63, p.S - 1);
+  int qpos[2];
+  qpos[0] = wq0 + row_in_wg;
+  qpos[1] = qpos[0] + 8;
+
+  // kv tiles that hold a visible key for some row of this q tile
+  const int q_last = min(q0 + BQ, p.S) - 1;
+  const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int k_end = p.causal ? q_last + 1 : p.S;
+  const int kt_begin = k_begin / BK;
+  const int kt_end = (k_end + BK - 1) / BK;
+
+  // One thread issues every copy: Q once, then K and V tile i + 2 as soon as
+  // all eight warps are done with tile i, whose stage it takes.
+  const bool producer = threadIdx.x == 128;
+  auto load_kv = [&](int i) {
+    const int stage = i & 1;
+    const int k0 = (kt_begin + i) * BK;
+    mbar_expect_tx(full + 8 * stage, 2 * KV_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < DP / 64; ++cb) {
+      tma_box(Ks + stage * KV_BYTES + cb * BK * kSwizzleRow, &tk, p.k_slots, cb * 64, k0, g, b,
+              full + 8 * stage);
+      tma_box(Vs + stage * KV_BYTES + cb * BK * kSwizzleRow, &tv, p.v_slots, cb * 64, k0, g, b,
+              full + 8 * stage);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 8, 1);
+    mbar_init(empty, 8);
+    mbar_init(empty + 8, 8);
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (producer) {
+    mbar_expect_tx(q_full, Q_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < DP / 64; ++cb)
+      tma_box(Qs + cb * BQ * kSwizzleRow, &tq, p.q_slots, cb * 64, q0, h, b, q_full);
+    load_kv(0);
+    if (kt_begin + 1 < kt_end) load_kv(1);
+  }
+
+  float acc[OREG];
+#pragma unroll
+  for (int i = 0; i < OREG; ++i) acc[i] = 0.f;
+  // the running max m is kept in the units of the (capped) scores x, and
+  // exp(scale (s - m)) or, with a soft cap, exp(x - m) is 2^(c x - c m)
+  const bool capped = p.soft_cap > 0.f;
+  const float c = capped ? kLog2e : p.scale * kLog2e;
+  const float cap_in = capped ? p.scale / p.soft_cap : 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};                     // this thread's part of the row sums
+
+  mbar_wait(q_full, 0);
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int i = kt - kt_begin;
+    const int stage = i & 1;
+    const uint32_t parity = (i >> 1) & 1;
+    const int k0 = kt * BK;
+    mbar_wait(full + 8 * stage, parity);
+
+    const bool live = wq0 < p.S && !(p.causal && k0 > wq1) &&
+                      !(p.window > 0 && wq0 - (k0 + BK - 1) >= p.window);
+    if (live) {
+      // S = Q K^T on the tensor cores: DP / 16 products of depth 16
+      float s[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;   // 16 columns into the 128-byte row
+        const uint64_t da = wgmma_desc(Qs + (kk / 4) * (BQ * kSwizzleRow) + wg * 64 * kSwizzleRow + off,
+                                       0, 8 * kSwizzleRow);
+        const uint64_t db = wgmma_desc(Ks + stage * KV_BYTES + (kk / 4) * (BK * kSwizzleRow) + off,
+                                       0, 8 * kSwizzleRow);
+        wgmma_ss_n64(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // soft-cap and mask in place; masks only on edge tiles
+      const bool edge = k0 + BK > p.S || (p.causal && k0 + BK - 1 > wq0) ||
+                        (p.window > 0 && wq1 - k0 >= p.window);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float x = s[4 * j + e];
+          if (capped) x = p.soft_cap * tanhf(x * cap_in);
+          if (edge) {
+            const int kpos = k0 + 8 * j + col + (e & 1);
+            const bool visible = kpos < p.S && (!p.causal || qpos[r] >= kpos) &&
+                                 (p.window <= 0 || qpos[r] - kpos < p.window);
+            x = visible ? x : kNegInf;
+          }
+          s[4 * j + e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+      float cm[2], corr[2];
+      bool moved = false;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        // c m rounded once (never fused), so that a rescale cancels exactly the
+        // factor 2^-cm the earlier tiles were taken with; 0 while the row has seen nothing
+        cm[r] = m_new == kNegInf ? 0.f : __fmul_rn(c, m_new);
+        corr[r] = m_new == m[r] ? 1.f : exp2_approx(__fmul_rn(c, m[r]) - cm[r]);
+        moved = moved || m_new != m[r];
+        m[r] = m_new;
+      }
+
+      // P = exp(S - m) in float32, summed in float32, handed to the second
+      // product as two bf16 parts, hi = bf16(P) and lo = bf16(P - hi)
+      uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = e >> 1;
+          const float p0 = exp2_approx(fmaf(s[4 * j + e], c, -cm[r]));
+          const float p1 = exp2_approx(fmaf(s[4 * j + e + 1], c, -cm[r]));
+          sum[r] += p0 + p1;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+          const __nv_bfloat162 lo =
+              __floats2bfloat162_rn(p0 - __low2float(hi), p1 - __high2float(hi));
+          // A fragment of keys 16 kk ..: registers 0-3 = (row, k 0-7), (row + 8, k 0-7),
+          // (row, k 8-15), (row + 8, k 8-15)
+          const int reg = (j & 1) * 2 + r;
+          p_hi[j / 2][reg] = bf16x2_bits(hi);
+          p_lo[j / 2][reg] = bf16x2_bits(lo);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+      if (__any_sync(0xffffffffu, moved)) {    // most tiles of a long row move no max
+#pragma unroll
+        for (int r = 0; r < OREG; ++r) acc[r] *= corr[(r >> 1) & 1];
+      }
+
+      // O += P V on the tensor cores; V is the MN-major operand
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = wgmma_desc(Vs + stage * KV_BYTES + kk * 16 * kSwizzleRow,
+                                       BK * kSwizzleRow, 8 * kSwizzleRow);
+        wgmma_pv<DP>(acc, p_hi[kk], db);
+        wgmma_pv<DP>(acc, p_lo[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+
+    // this warp is done with the stage; the producer refills it once all are
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+    if (producer && kt + 2 < kt_end) {
+      mbar_wait(empty + 8 * stage, parity);
+      load_kv(i + 2);
+    }
+  }
+
+  // O / l, rounded once to bf16, staged through this warpgroup's rows of the
+  // Q tile (which only it reads) so that the stores to o are whole 16-byte
+  // chunks of rows; o is contiguous (B, S, H, D)
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float tot = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    tot += __shfl_xor_sync(0xffffffffu, tot, 2);
+    inv[r] = tot > 0.f ? 1.f / tot : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int cc = 8 * j + col;
+      if (cc < D) {
+        const int row = 64 * wg + row_in_wg + 8 * r;
+        const uint32_t off = tile_offset<BQ>(row, cc / 8) + (cc % 8) * 2;
+        *reinterpret_cast<__nv_bfloat162*>(smem + off) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+      }
+    }
+  }
+  if (wg == 0)
+    named_sync<kEpilogueBarrier, 128>();
+  else
+    named_sync<kEpilogueBarrier + 1, 128>();
+  constexpr int CH = D / 8;
+  static_assert(64 * CH % 128 == 0, "whole rounds of 16-byte chunks");
+#pragma unroll
+  for (int i = 0; i < 64 * CH / 128; ++i) {
+    const int idx = threadIdx.x % 128 + i * 128;
+    const int row = 64 * wg + idx / CH;
+    const int cc = idx % CH;
+    const int s = q0 + row;
+    if (s < p.S) {
+      const uint4 val = *reinterpret_cast<const uint4*>(smem + tile_offset<BQ>(row, cc));
+      *reinterpret_cast<uint4*>(o + ((static_cast<long long>(b) * p.S + s) * p.H + h) * D + cc * 8) = val;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, const Params& p,
                    cudaStream_t stream) {
-  constexpr int BK = D >= 256 ? 32 : 64;       // keeps a float32 D=256 block in 140 KB
-  constexpr int SW = D / Word<T>::kElems + 1;
+  constexpr int BK = D >= 256 ? 32 : 64;       // keeps a D=256 block in 140 KB
+  constexpr int SW = D + 1;
   constexpr int smem = ((kBlockQ + 2 * BK) * SW + kBlockQ * (BK + 1)) * 4;
-  auto kernel = flash_fwd_kernel<T, D, BK>;
+  auto kernel = flash_fwd_kernel<float, D, BK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.S + kBlockQ - 1) / kBlockQ, p.H, p.B);
   kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, p);
+  return cudaGetLastError();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (no link to libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A TMA map of a bf16 (B, S, heads, D) tensor read through its strides, boxes
+// of 64 columns x `rows` positions, 128-byte swizzle, zeros past S and past D.
+// The three outer axes go to dimensions 1-3 in order of stride; `slots`
+// records where each went (two bits each: sequence, head, batch).
+cudaError_t make_map(CUtensorMap* map, int* slots, const void* ptr, int D, int S, int heads,
+                     int B, long long s_stride, long long h_stride, long long b_stride, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const long long strides[3] = {s_stride, h_stride, b_stride};
+  const long long sizes[3] = {S, heads, B};
+  int order[3] = {0, 1, 2};                     // axes by stride, smallest first
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && strides[order[j]] < strides[order[j - 1]]; --j) {
+      const int t = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), 0, 0, 0};
+  cuuint64_t gstrides[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  *slots = 0;
+  for (int j = 0; j < 3; ++j) {
+    const int axis = order[j];
+    dims[j + 1] = static_cast<cuuint64_t>(sizes[axis]);
+    gstrides[j] = static_cast<cuuint64_t>(strides[axis]) * 2;
+    if (axis == 0) box[j + 1] = rows;
+    *slots |= (j + 1) << (2 * axis);
+  }
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                              dims, gstrides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                   __nv_bfloat16* o, const Params& params, cudaStream_t stream) {
+  constexpr int DP = D < 64 ? 64 : D;
+  // Q, two stages of K and V, and 1 KB to align the tiles to 1024 bytes
+  constexpr int smem = (kTcBlockQ + 4 * kTcBlockK) * DP * 2 + 1024;
+  Params p = params;
+  const long long strides[] = {p.q_sb, p.q_ss, p.q_sh, p.k_sb, p.k_ss,
+                               p.k_sh, p.v_sb, p.v_ss, p.v_sh};
+  for (long long st : strides)
+    if (st % 8) return cudaErrorMisalignedAddress;          // rows on 16 bytes
+  for (const void* ptr : {static_cast<const void*>(q), static_cast<const void*>(k),
+                          static_cast<const void*>(v), static_cast<const void*>(o)})
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorMisalignedAddress;
+  alignas(64) CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, &p.q_slots, q, D, p.S, p.H, p.B, p.q_ss, p.q_sh, p.q_sb,
+                             kTcBlockQ);
+  if (err == cudaSuccess)
+    err = make_map(&tk, &p.k_slots, k, D, p.S, p.G, p.B, p.k_ss, p.k_sh, p.k_sb, kTcBlockK);
+  if (err == cudaSuccess)
+    err = make_map(&tv, &p.v_slots, v, D, p.S, p.G, p.B, p.v_ss, p.v_sh, p.v_sb, kTcBlockK);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_tc_kernel<D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.S + kTcBlockQ - 1) / kTcBlockQ, p.H, p.B);
+  kernel<<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, o, p);
   return cudaGetLastError();
 }
 
@@ -280,10 +843,10 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int S, int 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
-    case 32: err = launch<T, 32>(qt, kt, vt, ot, p, st); break;
-    case 64: err = launch<T, 64>(qt, kt, vt, ot, p, st); break;
-    case 128: err = launch<T, 128>(qt, kt, vt, ot, p, st); break;
-    case 256: err = launch<T, 256>(qt, kt, vt, ot, p, st); break;
+    case 32: err = launch<32>(qt, kt, vt, ot, p, st); break;
+    case 64: err = launch<64>(qt, kt, vt, ot, p, st); break;
+    case 128: err = launch<128>(qt, kt, vt, ot, p, st); break;
+    case 256: err = launch<256>(qt, kt, vt, ot, p, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -302,8 +865,10 @@ extern "C" {
   q, k, v, o, B, S, H, G, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,   \
       causal, window, soft_cap, stream
 
+// float32 on the CUDA cores (flash_fwd_kernel)
 int flash_attention_f32(FLASH_ARGS) { return run<float>(FLASH_PASS); }
 
+// bfloat16 on the tensor cores (flash_fwd_tc_kernel)
 int flash_attention_bf16(FLASH_ARGS) { return run<__nv_bfloat16>(FLASH_PASS); }
 
 const char* flash_error_string(int err) {

@@ -12,6 +12,11 @@ stream; the library is built with ``nvcc`` at first use
 (``kernels/build.py``).  q, k and v are read in place through their
 strides (the last axis must be contiguous), at any S.
 
+The dtype picks the kernel (``KERNELS``): bfloat16 runs on the tensor
+cores (``flash_fwd_tc_kernel``, rows on 16-byte boundaries: strides a
+multiple of 8 elements and 16-byte aligned pointers), float32 on the
+CUDA cores (``flash_fwd_kernel``).
+
 The wrapper takes CUDA tensors only and raises on anything the kernel
 does not take; the plain version is ``flash_ref.flash_attention_ref``.
 ``flash_attention.launches`` counts the kernel's launches.
@@ -28,6 +33,10 @@ from repro_torch.kernels import build
 HEAD_DIMS = (32, 64, 128, 256)
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
+# the device kernel each dtype launches, as a profiler names it
+KERNELS = {torch.float32: "flash_fwd_kernel", torch.bfloat16: "flash_fwd_tc_kernel"}
+# bytes a row start must be aligned to
+_ROW_ALIGN = {torch.float32: 4, torch.bfloat16: 16}
 _fns: dict = {}
 
 
@@ -75,12 +84,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention takes head_dim in {HEAD_DIMS}, got {d}")
     if not (1 <= b < 2**16 and 1 <= h < 2**16 and 1 <= s < 2**31):
         raise ValueError(f"shape {tuple(q.shape)} is outside the kernel's grid")
-    words = 4 // q.element_size()
+    align = _ROW_ALIGN[q.dtype]
+    elems = align // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along its last axis")
-        if any(st % words for st in t.stride()[:3]) or t.data_ptr() % 4:
-            raise ValueError(f"{name}'s rows must start on 4-byte boundaries")
+        if any(st % elems for st in t.stride()[:3]) or t.data_ptr() % align:
+            raise ValueError(f"{name}'s rows must start on {align}-byte boundaries")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if logit_soft_cap is not None and not logit_soft_cap > 0:

@@ -12,7 +12,8 @@ bfloat16 at most 1 ulp (both accumulate in float32 and round once).
 Flash attention and the SSD scan are held to their float32 plain
 versions on the same input values, within float32 rounding
 (``assert_flash_close``, ``assert_ssd_close``) plus, in bfloat16, half
-an ulp of each output.
+an ulp of each output.  Flash attention runs bfloat16 on the tensor
+cores and float32 on the CUDA cores; both meet the same limit.
 """
 import pytest
 import torch
@@ -169,6 +170,80 @@ def test_flash_kernel_reads_strided_views(cuda_device):
     got = flash_attention(q, k, v, True, None, None)
     want = flash_attention_ref(q, k, v, True, None, None)
     assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", list(FLASH_INPUT_SCALES))
+def test_flash_kernel_at_zamba2_head(cuda_device, inputs):
+    """zamba2-1.2b's shared attention at a full 2048-token prompt: 32 heads
+    of 64, causal, bfloat16 on the tensor cores."""
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.flash_ref import flash_attention_ref
+
+    b, s, h, g, d = 1, 2048, 32, 32, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    scale = FLASH_INPUT_SCALES[inputs]
+    q, k, v = (torch.randn(shp, generator=gen, device=cuda_device).mul(scale).bfloat16()
+               for shp in ((b, s, h, d), (b, s, g, d), (b, s, g, d)))
+    got = flash_attention(q, k, v, True, None, None)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), True, None, None)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_bf16_views(cuda_device):
+    """bf16 q, k and v sliced out of one packed projection on 16-byte
+    boundaries, read in place by the tensor-core kernel."""
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.flash_ref import flash_attention_ref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn((2, 130, 12, 64), generator=gen, device=cuda_device).bfloat16()
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    assert not q.is_contiguous() and k.data_ptr() % 16 == 0
+    got = flash_attention(q, k, v, True, None, None)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), True, None, None)
+    assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_bf16_rows_off_16_bytes(cuda_device):
+    """The tensor-core kernel copies 16-byte chunks: bf16 rows must start on
+    16-byte boundaries (float32 needs 4)."""
+    from repro_torch.kernels.flash import flash_attention
+
+    kv = torch.zeros((1, 16, 2, 64), device=cuda_device)
+    wide = torch.zeros((1, 16, 4, 68), device=cuda_device)   # head stride 68 elements
+    flash_attention(wide[..., :64], kv, kv)                   # fine in float32
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(wide.bfloat16()[..., :64], kv.bfloat16(), kv.bfloat16())
+    flat = torch.zeros(16 * 4 * 64 + 4, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):                 # starts 8 bytes in
+        flash_attention(flat[4:].view(1, 16, 4, 64), kv.bfloat16(), kv.bfloat16())
+
+
+@pytest.mark.cuda
+def test_flash_dtype_picks_the_kernel(cuda_device):
+    """bf16 runs the tensor-core kernel and float32 the CUDA-core one, by
+    the names of the device kernels under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash import KERNELS, flash_attention
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q = torch.randn((1, 256, 4, 128), generator=gen, device=cuda_device)
+    kv = torch.randn((1, 256, 2, 128), generator=gen, device=cuda_device)
+    for dtype, other in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+        args = (q.to(dtype), kv.to(dtype), kv.to(dtype))
+        flash_attention(*args)                              # built and warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_attention(*args)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        assert sum(f"{KERNELS[dtype]}<" in n for n in names) == 1, names
+        assert not any(f"{KERNELS[other]}<" in n for n in names), names
 
 
 @pytest.mark.cuda
