@@ -9,13 +9,15 @@ script exits non-zero without a result line:
   1. device      — the card (nvidia-smi name and power limit, torch name).
   2. build       — nvcc builds src/repro_torch/kernels/csrc/aggregate.cu,
                    flash.cu and ssd.cu afresh, all at once; ptxas's
-                   registers and spills of each flash kernel.
+                   registers and spills of each flash and SSD kernel.
   3. check       — each kernel against its plain PyTorch version on the
                    card, at ragged shapes and at the main paths' shapes.
   4. time        — kernel, plain version and one library call (CUDA
                    events, L2 flushed before each launch, median of 30),
                    beside the kernel's bound; flash at gemma-7b's and
-                   zamba2-1.2b's prefill shapes.
+                   zamba2-1.2b's prefill shapes, the SSD scan at
+                   mamba2-780m's and zamba2-1.2b's and at mamba2's with
+                   one prompt.
   5. main        — the FedLEO path: rounds on the quickstart scenario
                    with the full-width CNN and the CUDA aggregation
                    kernel, launch counts reset just before and read just
@@ -34,10 +36,11 @@ script exits non-zero without a result line:
                    against the CPU.
   9. ssm_serve   — the SSM serving path, after gemma's weights are freed:
                    mamba2-780m and zamba2-1.2b at full width and depth
-                   in bfloat16, prefill through the CUDA SSD kernel (and
-                   zamba2's shared attention through the flash kernel),
-                   greedy decoding against the recurrent cache, launch
-                   counts reset just before and read just after.
+                   in bfloat16, prefill through the CUDA SSD kernel (its
+                   tensor-core kernel alone, by the profile's kernel
+                   names; zamba2's shared attention through the flash
+                   kernel), greedy decoding against the recurrent cache,
+                   launch counts reset just before and read just after.
  10. ssm_agree   — SSM prefill (kernel) against teacher-forced decode
                    (recurrence, no kernel) at full width; smoke configs
                    on the card against the CPU at a ragged S.
@@ -115,21 +118,26 @@ SSD_CHECK_SHAPES = [(1, 2048, 48, 64, 1, 128), (1, 2048, 64, 64, 1, 64),
                     (1, 77, 64, 64, 1, 64)]
 SSD_SCALES = ("tests", "model")
 SSD_CHUNK = 128
-# mamba2-780m's prefill shape, timed: (B, S, H, P, G, N)
-SSD_TIME_SHAPE = (SERVE_BATCH, SERVE_SEQ, 48, 64, 1, 128)
+# the SSD scan timed at the prefill shapes (B, S, H, P, G, N): mamba2-780m's
+# (the kernels line's), zamba2-1.2b's, and mamba2-780m's with one prompt
+SSD_TIME_CASES = {"mamba2": (SERVE_BATCH, SERVE_SEQ, 48, 64, 1, 128),
+                  "zamba2": (SERVE_BATCH, SERVE_SEQ, 64, 64, 1, 64),
+                  "mamba2_b1": (1, SERVE_SEQ, 48, 64, 1, 128)}
 SSM_MODELS = {"mamba2-780m": 780_148_992, "zamba2-1.2b": 1_104_937_856}
 
 
 def ptxas_summary(log: str) -> dict:
-    """Registers and spill bytes of each flash kernel in ``nvcc -Xptxas
-    -v`` output, by name and integer template arguments (head dim, and the
-    key tile of the CUDA-core kernel), and any warning the assembler
-    printed."""
+    """Registers and spill bytes of each flash or SSD kernel in ``nvcc
+    -Xptxas -v`` output, by name and integer template arguments (flash:
+    head dim, and the key tile of the CUDA-core kernel; SSD: the 64-column
+    blocks of N of the tensor-core kernel, P of the CUDA-core one), and
+    any warning the assembler printed."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"(flash_fwd(?:_tc)?_kernel)I(\w*?)EEEv", mangled)
+            m = re.search(r"(flash_fwd(?:_tc)?_kernel|ssd_scan(?:_tc)?_kernel)I(\w*?)EEEv",
+                          mangled)
             args = ",".join(re.findall(r"Li(\d+)", m.group(2))) if m else ""
             name = f"{m.group(1)}<{args}>" if m else mangled
             out[name] = {}
@@ -508,13 +516,16 @@ def time_flash(torch, dev, gen, flush, smi):
 def profile_call(torch, fn):
     """One call of ``fn`` under torch.profiler: its wall time, the
     device's busy share, and device time split into the flash kernels
-    (tensor-core and CUDA-core apart), the library's attention kernels,
-    the SSD kernel, matrix products (cuBLAS) and the rest."""
+    and the SSD kernels (tensor-core and CUDA-core apart), the library's
+    attention kernels, matrix products (cuBLAS) and the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash import KERNELS
+    from repro_torch.kernels.ssd import KERNELS as SSD_KERNELS
 
     tc_name, core_name = KERNELS[torch.bfloat16] + "<", KERNELS[torch.float32] + "<"
+    ssd_tc_name = SSD_KERNELS[torch.bfloat16] + "<"
+    ssd_core_name = SSD_KERNELS[torch.float32] + "<"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         w0 = time.perf_counter()
@@ -531,7 +542,9 @@ def profile_call(torch, fn):
     flash_tc = sum(ms for name, ms, _ in ours if tc_name in name)
     flash_core = sum(ms for name, ms, _ in ours if core_name in name)
     flash = flash_tc + flash_core
-    ssd = sum(ms for name, ms, _ in kernels if "ssd_scan_kernel" in name)
+    ssd_tc = sum(ms for name, ms, _ in kernels if ssd_tc_name in name)
+    ssd_core = sum(ms for name, ms, _ in kernels if ssd_core_name in name)
+    ssd = ssd_tc + ssd_core
     gemm = sum(ms for name, ms, _ in kernels
                if any(t in name.lower() for t in ("gemm", "gemv", "xmma", "cutlass", "nvjet")))
     return dict(wall_ms=wall_ms, device_busy_ms=busy, device_busy_share=busy / wall_ms,
@@ -541,7 +554,10 @@ def profile_call(torch, fn):
                 flash_core_ms=flash_core,
                 flash_core_launches=sum(c for n, _, c in ours if core_name in n),
                 library_attention=[n[:100] for n, _, _ in library],
-                ssd_ms=ssd, ssd_share=ssd / busy,
+                ssd_ms=ssd, ssd_share=ssd / busy, ssd_tc_ms=ssd_tc,
+                ssd_tc_launches=sum(c for n, _, c in kernels if ssd_tc_name in n),
+                ssd_core_ms=ssd_core,
+                ssd_core_launches=sum(c for n, _, c in kernels if ssd_core_name in n),
                 gemm_ms=gemm, gemm_share=gemm / busy, other_ms=busy - flash - ssd - gemm,
                 top_kernels=[{"name": n[:100], "ms": ms, "count": c} for n, ms, c in kernels[:10]])
 
@@ -557,6 +573,16 @@ def check_tc_only(prof, launches, what):
           f"{what}: {prof['flash_tc_launches']} tensor-core flash launches (expected "
           f"{launches}), {prof['flash_core_launches']} CUDA-core, library "
           f"{prof['library_attention']}")
+
+
+def check_ssd_tc_only(prof, launches, what):
+    """A profiled bf16 SSM prefill ran its scan on the tensor-core SSD
+    kernel alone: ``launches`` of it and no CUDA-core SSD kernel."""
+    if prof.get("device_busy_ms") == "not measured":
+        return
+    check(prof["ssd_tc_launches"] == launches and prof["ssd_core_launches"] == 0,
+          f"{what}: {prof['ssd_tc_launches']} tensor-core SSD launches (expected {launches}), "
+          f"{prof['ssd_core_launches']} CUDA-core")
 
 
 def serve(torch, dev, smi):
@@ -786,30 +812,33 @@ def ssd_bound_ms(b, s, h, p, g, n, chunk, itemsize):
 
 
 def time_ssd(torch, dev, gen, flush, smi):
-    """The kernel at mamba2-780m's prefill shape in bfloat16, beside its
-    plain version and its bound.  No single PyTorch call computes the
-    scan, so there is no library time."""
+    """The kernel at the SSM prefill shapes in bfloat16 with the model's
+    inputs, beside its plain version and its bound; returns the rows by
+    case.  No single PyTorch call computes the scan, so there is no
+    library time."""
     from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.kernels.ssd_ref import ssd_ref
 
-    b, s, h, p, g, n = SSD_TIME_SHAPE
-    x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, b, s, h, p, g, n, torch.bfloat16, "model")
-    y, state = ssd_scan(x, dt, A, Bm, Cm, SSD_CHUNK)
-    errs, scales, ok = ssd_errors(torch, y, state, x, dt, A, Bm, Cm, None, False)
-    check(ok, f"ssd_scan at the prefill shape: {errs}")
-    kern = time_ms(torch, lambda: ssd_scan(x, dt, A, Bm, Cm, SSD_CHUNK), flush)
-    plain = time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, SSD_CHUNK), flush)
-    bound, bound_by, nbytes, flops = ssd_bound_ms(b, s, h, p, g, n, SSD_CHUNK, 2)
-    row = dict(shape=[b, s, h, p, g, n], chunk=SSD_CHUNK, dtype="torch.bfloat16", inputs="model",
-               bytes=nbytes, flops=flops, bound_ms=bound, bound_by=bound_by, ms=kern,
-               plain_ms=plain, library_ms=None,
-               library_note="no single PyTorch call computes the SSD scan",
-               max_abs_err=errs["y_vs_chunked"], max_abs_err_state=errs["state_vs_chunked"],
-               achieved_TFLOPs=flops / (kern * 1e-3) / 1e12, roofline_share=bound / kern,
-               nvidia_smi=smi)
-    emit("time", kernel="ssd_scan", **row)
-    del x, dt, A, Bm, Cm, y, state
-    return row
+    rows = {}
+    for case, (b, s, h, p, g, n) in SSD_TIME_CASES.items():
+        x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, b, s, h, p, g, n, torch.bfloat16, "model")
+        y, state = ssd_scan(x, dt, A, Bm, Cm, SSD_CHUNK)
+        errs, scales, ok = ssd_errors(torch, y, state, x, dt, A, Bm, Cm, None, False)
+        check(ok, f"ssd_scan {case} at the prefill shape: {errs}")
+        kern = time_ms(torch, lambda: ssd_scan(x, dt, A, Bm, Cm, SSD_CHUNK), flush)
+        plain = time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, SSD_CHUNK), flush)
+        bound, bound_by, nbytes, flops = ssd_bound_ms(b, s, h, p, g, n, SSD_CHUNK, 2)
+        row = dict(shape=[b, s, h, p, g, n], case=case, chunk=SSD_CHUNK, dtype="torch.bfloat16",
+                   inputs="model", bytes=nbytes, flops=flops, bound_ms=bound, bound_by=bound_by,
+                   ms=kern, plain_ms=plain, library_ms=None,
+                   library_note="no single PyTorch call computes the SSD scan",
+                   max_abs_err=errs["y_vs_chunked"], max_abs_err_state=errs["state_vs_chunked"],
+                   achieved_TFLOPs=flops / (kern * 1e-3) / 1e12, roofline_share=bound / kern,
+                   nvidia_smi=smi)
+        emit("time", kernel="ssd_scan", **row)
+        rows[case] = row
+        del x, dt, A, Bm, Cm, y, state
+    return rows
 
 
 def cache_mb(cache) -> float:
@@ -876,6 +905,7 @@ def ssm_serve(torch, dev, smi):
                 prof = profile_call(torch, lambda: step(params, {"tokens": tokens}))
                 calls += 1
                 check_tc_only(prof, attn_uses, f"{arch} prefill")
+                check_ssd_tc_only(prof, cfg.num_layers, f"{arch} prefill")
             ms = statistics.median(times)
             emit("ssm_prefill", arch=arch, batch=SERVE_BATCH, seq=s, ms=ms, ms_all=times,
                  tokens_per_s=SERVE_BATCH * s / (ms * 1e-3), nvidia_smi=smi, profile=prof)
@@ -1013,7 +1043,8 @@ def main() -> int:
         libs = dict(zip(sources, ex.map(build.build, sources)))
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()},
-         flash_ptxas=ptxas_summary(build.LOGS.get("flash", "")))
+         flash_ptxas=ptxas_summary(build.LOGS.get("flash", "")),
+         ssd_ptxas=ptxas_summary(build.LOGS.get("ssd", "")))
 
     # 3. each kernel against its plain version, on the card
     n_main = count_params(init_cnn(torch.Generator().manual_seed(0)))
@@ -1028,7 +1059,7 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)   # 256 MB > L2
     agg_timed = time_aggregate(torch, dev, gen, flush, smi, main_shapes)
     flash_timed = time_flash(torch, dev, gen, flush, smi)
-    ssd_row = time_ssd(torch, dev, gen, flush, smi)
+    ssd_row = time_ssd(torch, dev, gen, flush, smi)["mamba2"]
     del flush
 
     # 5-6. the FedLEO path, and a small round against the CPU

@@ -14,6 +14,11 @@ must be contiguous), at any S.  The kernel walks the sequence in tiles
 of 64 steps whatever ``chunk`` is: the result does not depend on the
 chunking beyond rounding.
 
+The dtype picks the kernel (``KERNELS``): bfloat16 runs on the tensor
+cores (``ssd_scan_tc_kernel``, rows of x, B and C on 16-byte
+boundaries: strides a multiple of 8 elements and 16-byte aligned
+pointers), float32 on the CUDA cores (``ssd_scan_kernel``).
+
 The wrapper takes CUDA tensors only and raises on anything the kernel
 does not take; the plain version is ``ssd_ref.ssd_ref``.
 ``ssd_scan.launches`` counts the kernel's launches.
@@ -30,6 +35,10 @@ from repro_torch.kernels import build
 HEAD_DIMS = (8, 16, 32, 64)
 MAX_STATE_DIM = 128
 _SYMBOLS = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
+# the device kernel each dtype launches, as a profiler names it
+KERNELS = {torch.float32: "ssd_scan_kernel", torch.bfloat16: "ssd_scan_tc_kernel"}
+# bytes a row start of x, B and C must be aligned to
+_ROW_ALIGN = {torch.float32: 4, torch.bfloat16: 16}
 _fns: dict = {}
 
 
@@ -81,13 +90,17 @@ def _check(x, dt, A, Bm, Cm, chunk, initial_state) -> None:
         raise ValueError(f"ssd_scan takes head_dim P in {HEAD_DIMS}, got {p}")
     if not 1 <= n <= MAX_STATE_DIM:
         raise ValueError(f"ssd_scan takes state_dim N up to {MAX_STATE_DIM}, got {n}")
-    if not (1 <= b < 2**16 and 1 <= h < 2**31 and 1 <= s < 2**31):
+    if not (1 <= b < 2**16 and 1 <= h < 2**16 and 1 <= s < 2**31):
         raise ValueError(f"shape {tuple(x.shape)} is outside the kernel's grid")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    align = _ROW_ALIGN[x.dtype]
+    elems = align // x.element_size()
     for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along its last axis")
+        if any(st % elems for st in t.stride()[:3]) or t.data_ptr() % align:
+            raise ValueError(f"{name}'s rows must start on {align}-byte boundaries")
     if initial_state is not None and (
             tuple(initial_state.shape) != (b, h, p, n)
             or initial_state.dtype != torch.float32):

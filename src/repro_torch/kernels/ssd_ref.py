@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.mamba2 import ssd_chunked, ssd_decode_step
 
-# the kernel's tile, in steps (csrc/ssd.cu kTile)
+# the kernels' tile, in steps (csrc/ssd.cu kTile and kTcTile)
 KERNEL_TILE = 64
 
 

@@ -21,7 +21,8 @@ from repro.kernels.ssd_ref import ssd_naive as ref_naive
 from repro.kernels.ssd_ref import ssd_ref as ref_oracle
 from repro.models import mamba2 as ref_mamba2
 from repro_torch.kernels import ssd_ops
-from repro_torch.kernels.ssd_ref import ssd_naive, ssd_ref, ssd_steps
+from repro_torch.kernels.ssd_ref import (ssd_naive, ssd_padded, ssd_ref, ssd_rounding_limit,
+                                        ssd_steps)
 from repro_torch.models import mamba2
 
 # (b, s, h, p, g, n, chunk): tests/test_kernels.py::test_ssd_sweep
@@ -157,3 +158,112 @@ def test_ssd_ops_refuses_other_devices():
     bc = torch.empty((1, 8, 1, 8), device="meta")
     with pytest.raises(ValueError, match="no SSD path"):
         ssd_ops.ssd(x, dt, torch.empty((2,), device="meta"), bc, bc, chunk=4)
+
+
+# --- the rounding scheme of the bfloat16 tensor-core kernel ---------------------------
+# (b, s, h, p, g, n, initial state): mamba2's head at S = 512, and a ragged S
+# (no 64-step tile divides it) from an initial state at zamba2's N
+ROUNDING_SHAPES = {"s512": (1, 512, 8, 64, 1, 128, False),
+                   "ragged-s300-init": (1, 300, 8, 64, 1, 64, True)}
+ROUNDED_OPERANDS = ("scores", "state", "xw")
+KERNEL_TILE = 64          # the tensor-core kernel's chunk, csrc/ssd.cu kTcTile
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def _parts(v: torch.Tensor, split: bool):
+    """The bf16 parts an operand enters its products as: hi = bf16(v) and
+    lo = bf16(v - hi), or hi alone when rounded once."""
+    hi = _bf16(v)
+    return (hi, _bf16(v - hi)) if split else (hi,)
+
+
+def _emulate_tc_kernel(x, dt, A, Bm, Cm, init, split=ROUNDED_OPERANDS):
+    """The tensor-core kernel's arithmetic in float32: 64-step chunks; the
+    masked scores S' = C B^T o L o dt_j, the carried state and the weighted
+    input x w (w = dt exp(c_last - c)) each enter their products as the bf16
+    parts of ``_parts`` (split for the operands named in ``split``, rounded
+    once for the others); products of bf16 values accumulate in float32 and
+    y is rounded to bf16 once.  Returns (y, final state)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[3]
+    rep = h // Bm.shape[2]
+    pad = -s % KERNEL_TILE
+    x, Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, Bm, Cm))
+    dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    xh = x.permute(0, 2, 1, 3)                                       # (b, h, S, p)
+    bh, ch = (t.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3) for t in (Bm, Cm))
+    dth = dt.permute(0, 2, 1)                                        # (b, h, S)
+    state = (torch.zeros((b, h, p, n)) if init is None else init.clone())
+    mask = torch.tril(torch.ones((KERNEL_TILE, KERNEL_TILE), dtype=torch.bool))
+    ys = []
+    for t0 in range(0, s + pad, KERNEL_TILE):
+        sl = slice(t0, t0 + KERNEL_TILE)
+        xc, bc, cc, dc = xh[:, :, sl], bh[:, :, sl], ch[:, :, sl], dth[:, :, sl]
+        cum = torch.cumsum(dc * A[None, :, None], dim=-1)             # (b, h, Q)
+        decay = torch.exp(cum[..., :, None] - cum[..., None, :]).masked_fill(~mask, 0.0)
+        scores = (cc @ bc.transpose(-1, -2)) * decay * dc[..., None, :]
+        yo = sum(cc @ part.transpose(-1, -2) for part in _parts(state, "state" in split))
+        yd = sum(part @ xc for part in _parts(scores, "scores" in split))
+        ys.append(_bf16(torch.exp(cum)[..., None] * yo + yd))
+        w = dc * torch.exp(cum[..., -1:] - cum)
+        xw = xc * w[..., None]
+        state = torch.exp(cum[..., -1])[..., None, None] * state + sum(
+            part.transpose(-1, -2) @ bc for part in _parts(xw, "xw" in split))
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3)[:, :s]
+    return y, state
+
+
+def _rounding_inputs(shape, scale):
+    """bf16-valued x, B, C (as the model hands them over), float32 dt and
+    A at the tests' or the model's scale, and an optional initial state."""
+    b, s, h, p, g, n, with_init = shape
+    rng = np.random.default_rng(s + n)
+    x, B, C = (_bf16(torch.from_numpy((rng.standard_normal(shp) * 0.5).astype(np.float32)))
+               for shp in ((b, s, h, p), (b, s, g, n), (b, s, g, n)))
+    if scale == "tests":
+        dt = torch.from_numpy((rng.random((b, s, h)) * 0.5 + 0.1).astype(np.float32))
+        A = -torch.from_numpy((rng.random(h) * 0.5 + 0.1).astype(np.float32))
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32)))
+        A = -torch.linspace(1.0, 16.0, h)
+    init = (torch.from_numpy((rng.standard_normal((b, h, p, n)) * 0.5).astype(np.float32))
+            if with_init else None)
+    return x, dt, A, B, C, init
+
+
+def _within_card_limit(y, state, x, dt, A, Bm, Cm, init):
+    """The card's test (``assert_ssd_close`` in tests/test_torch_kernels_cuda.py):
+    y within ``ssd_rounding_limit`` plus half a bf16 ulp of each value of
+    the float32 chunked scan, the state within the limit."""
+    y_want, s_want = ssd_padded(x, dt, A, Bm, Cm, 128, init)
+    y_lim, s_lim = ssd_rounding_limit(x, dt, A, Bm, Cm, 128, init)
+    y_lim = y_lim + 2.0 ** -8 * y_want.abs()
+    return (bool(((y - y_want).abs() <= y_lim).all()),
+            bool(((state - s_want).abs() <= s_lim).all()))
+
+
+@pytest.mark.parametrize("shape", list(ROUNDING_SHAPES))
+@pytest.mark.parametrize("scale", ["tests", "model"])
+def test_bf16_kernel_rounding_meets_the_card_limit(scale, shape):
+    """S', the state and x w each split into bf16 hi + lo keep y and the
+    final state within the card's float32 limit of the plain chunked scan
+    on the same input values, at both input scales."""
+    args = _rounding_inputs(ROUNDING_SHAPES[shape], scale)
+    y, state = _emulate_tc_kernel(*args)
+    assert _within_card_limit(y, state, *args) == (True, True)
+
+
+@pytest.mark.parametrize("shape", list(ROUNDING_SHAPES))
+@pytest.mark.parametrize("rounded", ROUNDED_OPERANDS)
+def test_rounding_one_operand_once_misses_the_card_limit(rounded, shape):
+    """Rounding any one of the three float32 operands to bf16 once, the
+    other two split, breaks the limit at the tests' scale: why each split
+    is there."""
+    args = _rounding_inputs(ROUNDING_SHAPES[shape], "tests")
+    split = tuple(op for op in ROUNDED_OPERANDS if op != rounded)
+    y, state = _emulate_tc_kernel(*args, split=split)
+    assert _within_card_limit(y, state, *args) != (True, True)
