@@ -11,13 +11,27 @@ script exits non-zero without a result line:
                    flash.cu and ssd.cu afresh, all at once; ptxas's
                    registers and spills of each flash and SSD kernel.
   3. check       — each kernel against its plain PyTorch version on the
-                   card, at ragged shapes and at the main paths' shapes.
+                   card, at ragged shapes and at the main paths' shapes;
+                   the aggregation kernel also over whole leaf lists:
+                   the CNN's stacked tree (one launch) and a ragged
+                   mixed-dtype list with strided and offset views.
   4. time        — kernel, plain version and one library call (CUDA
-                   events, L2 flushed before each launch, median of 30),
-                   beside the kernel's bound; flash at gemma-7b's and
-                   zamba2-1.2b's prefill shapes, the SSD scan at
-                   mamba2-780m's and zamba2-1.2b's and at mamba2's with
-                   one prompt.
+                   events, median of 30, a device spin between the flush
+                   and the start event), beside the kernel's bound;
+                   aggregation at the FedLEO shapes under three flushes
+                   of L2 before each launch (``dirty``: a 256 MB
+                   ``zero_()``, which leaves L2 full of dirty lines, as
+                   for flash and SSD; ``clean``: a read of the same
+                   buffer; ``warm``: none, the inputs in L2 as local
+                   training leaves them) and at 8 x 2^25 (dirty and
+                   clean), the plain version under the dirty flush only,
+                   then the pytree route (``torch.cat`` + one
+                   ``aggregate_flat`` against one launch over the leaves,
+                   with wall time per call and peak device memory) on
+                   the CNN's tree and mamba2-780m's; flash (dirty) at
+                   gemma-7b's and zamba2-1.2b's prefill shapes, the SSD
+                   scan (dirty) at mamba2-780m's and zamba2-1.2b's and
+                   at mamba2's with one prompt.
   5. main        — the FedLEO path: rounds on the quickstart scenario
                    with the full-width CNN and the CUDA aggregation
                    kernel, launch counts reset just before and read just
@@ -48,8 +62,9 @@ script exits non-zero without a result line:
 With --profile, one more FedLEO round runs after the launch counts are
 read, under torch.profiler: its wall time split into local training,
 aggregation, evaluation and the rest (scheduling), each range closed by
-a device synchronise, and the device's kernel time by name with its
-busy share (phase ``profile``).
+a device synchronise, the device's kernel time by name with its busy
+share, and what ran inside the aggregation ranges: no concatenation
+(phase ``profile``).
 
 Then the kernels line, the nvidia-smi line and, last, the result line.
 TF32 is off for matmuls and convolutions, so float32 stays float32.
@@ -78,6 +93,7 @@ FP32_FLOPS_PER_S = 67e12           # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12          # H100 SXM, bfloat16 tensor cores, dense
 SCENARIO = dict(num_planes=5, sats_per_plane=8, train=1600)
 MAIN_ROUNDS = 4
+SPIN_CYCLES = 2_000_000            # about 1 ms at the H100's clocks
 SIM_EPOCHS = 8
 
 # flash attention: (B, S, H, G, D) checked on the card — gemma-7b's heads,
@@ -127,17 +143,18 @@ SSM_MODELS = {"mamba2-780m": 780_148_992, "zamba2-1.2b": 1_104_937_856}
 
 
 def ptxas_summary(log: str) -> dict:
-    """Registers and spill bytes of each flash or SSD kernel in ``nvcc
-    -Xptxas -v`` output, by name and integer template arguments (flash:
-    head dim, and the key tile of the CUDA-core kernel; SSD: the 64-column
-    blocks of N of the tensor-core kernel, P of the CUDA-core one), and
-    any warning the assembler printed."""
+    """Registers and spill bytes of each flash, SSD or aggregation kernel
+    in ``nvcc -Xptxas -v`` output, by name and integer template arguments
+    (flash: head dim, and the key tile of the CUDA-core kernel; SSD: the
+    64-column blocks of N of the tensor-core kernel, P of the CUDA-core
+    one; aggregation: K, 0 for any K above 8, and the leaf table's
+    capacity), and any warning the assembler printed."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"(flash_fwd(?:_tc)?_kernel|ssd_scan(?:_tc)?_kernel)I(\w*?)EEEv",
-                          mangled)
+            m = re.search(r"(flash_fwd(?:_tc)?_kernel|ssd_scan(?:_tc)?_kernel"
+                          r"|aggregate_leaves_kernel)I(\w*?)EEEv", mangled)
             args = ",".join(re.findall(r"Li(\d+)", m.group(2))) if m else ""
             name = f"{m.group(1)}<{args}>" if m else mangled
             out[name] = {}
@@ -201,13 +218,29 @@ def flash_bound_ms(b, s, h, g, d, causal, window, itemsize, flops_per_s):
             nbytes, flops)
 
 
-def time_ms(torch, fn, flush, reps: int = 30, warmup: int = 5) -> float:
-    """Median device time of one call, L2 flushed before each."""
+def l2_flushes(buf) -> dict:
+    """What runs before each timed launch: ``dirty`` writes the 256 MB
+    buffer (L2 is left full of dirty lines, which the launch then writes
+    back as it evicts them), ``clean`` reads it (L2 is left clean),
+    ``warm`` does nothing (the launch finds its inputs where the last one
+    left them)."""
+    return {"dirty": buf.zero_, "clean": buf.sum, "warm": None}
+
+
+def time_ms(torch, fn, flush, reps: int = 30, warmup: int = 5, spin: bool = True) -> float:
+    """Median device time of one call, ``flush`` (if any) run before each.
+    With ``spin``, a spin of SPIN_CYCLES clocks on the device follows, so
+    the start event is stamped after the host has queued the call, not
+    before (without it, a call whose host side outlasts the flush's device
+    time counts that host time too)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if flush is not None:
+            flush()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -251,6 +284,7 @@ def profile_round(torch, strategy, t: float) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.core import fedleo
+    from repro_torch.kernels.aggregate import KERNEL
 
     def ranged(fn, label):
         def call(*args, **kwargs):
@@ -287,15 +321,40 @@ def profile_round(torch, strategy, t: float) -> dict:
               and e.device_type == DeviceType.CPU}
     kernels = device_kernels(stats)
     busy_ms = sum(ms for _, ms, _ in kernels)
+    agg_ops, agg_kernels = range_contents(prof, "aggregate")
+    cats = ([n for n in agg_ops if n in ("aten::cat", "aten::concat", "aten::concatenate")]
+            + [n for n in agg_kernels if "CatArray" in n])
+    check(not cats, f"the aggregation ranges concatenated: {cats}")
     return dict(
         wall_ms=wall_ms,
         host_ranges_ms={**ranges, "other": wall_ms - sum(ranges.values())},
         device_busy_ms=busy_ms if kernels else "not measured",
         device_busy_share=busy_ms / wall_ms if kernels else "not measured",
-        aggregate_kernel_ms=sum(ms for k, ms, _ in kernels if "aggregate_kernel" in k),
+        aggregate_kernel_ms=sum(ms for k, ms, _ in kernels if KERNEL in k),
+        aggregate_kernel_launches=sum(c for k, _, c in kernels if KERNEL in k),
+        aggregate_range={"ops": sorted(set(agg_ops)), "kernels": sorted(set(agg_kernels))},
         top_kernels=[{"name": k[:120], "ms": ms, "count": c} for k, ms, c in kernels[:12]],
         t_next=t_next,
     )
+
+
+def range_contents(prof, label: str):
+    """(CPU op names, device kernel names) inside every host range
+    ``label`` of a profile, the range's own kernels included."""
+    from torch.autograd import DeviceType
+
+    ops, kernels = [], []
+
+    def walk(event):
+        kernels.extend(k.name for k in event.kernels)
+        for child in event.cpu_children:
+            ops.append(child.name)
+            walk(child)
+
+    for event in prof.events():
+        if event.name == label and event.device_type == DeviceType.CPU:
+            walk(event)
+    return ops, kernels
 
 
 def device_kernels(stats):
@@ -310,12 +369,60 @@ def device_kernels(stats):
 
 
 # --- the aggregation kernel (FedLEO path) -----------------------------------------
+def leaves_error(torch, got, want):
+    """The kernel's leaves against the plain version's: (max abs error,
+    worst float32 error relative to its leaf's largest output, worst
+    bfloat16 ulp distance, whether every leaf is within its limit:
+    1e-5 relative in float32, 1 ulp in bfloat16).  The plain version
+    repeats the kernel's fmaf chain, so the two should also be equal."""
+    from repro_torch.kernels.aggregate_ref import bf16_ulp_distance
+
+    abs_err, rel, ulps = 0.0, 0.0, 0
+    for g, r in zip(got, want):
+        check(g.shape == r.shape and g.dtype == r.dtype, f"bad output {g.shape} {g.dtype}")
+        if r.numel() == 0:
+            continue
+        check(bool(torch.isfinite(g.float()).all()), "non-finite output")
+        err = float((g.float() - r.float()).abs().max())
+        abs_err = max(abs_err, err)
+        if r.dtype == torch.float32:
+            rel = max(rel, err / max(float(r.abs().max()), 1e-30))
+        else:
+            ulps = max(ulps, int(bf16_ulp_distance(g, r).max()))
+    return abs_err, rel, ulps, rel <= 1e-5 and ulps <= 1
+
+
+def cnn_stacked(torch, dev, gen, k, dtype):
+    """The paper's CNN at full width (421,642 parameters, 8 leaves)
+    stacked over k clients, random values from ``gen``."""
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda p: torch.randn((k, *p.shape), generator=gen, device=dev).to(dtype),
+                    init_cnn(torch.Generator().manual_seed(0)))
+
+
+def ragged_mixed_leaves(torch, dev, gen, k):
+    """(K, n) leaves of both dtypes and every alignment: rows from 1 to
+    1,000,003 elements, and per dtype two views into a matrix with rows
+    5000 apart, one a single element in (off 16 bytes), one 16 bytes in."""
+    xs = [torch.randn((k, n), generator=gen, device=dev).to(
+              torch.float32 if i % 2 else torch.bfloat16)
+          for i, n in enumerate([1, 7, 10, 288, 2049, 4096, 12_345, 401_408, 1_000_003])]
+    for dtype in (torch.float32, torch.bfloat16):
+        big = torch.randn((k, 5000), generator=gen, device=dev).to(dtype)
+        step = 16 // big.element_size()
+        xs += [big[:, 1:4097], big[:, step:step + 4096]]
+    return xs
+
+
 def check_aggregate(torch, dev, gen, main_shapes):
-    from repro_torch.kernels.aggregate import aggregate_flat
-    from repro_torch.kernels.aggregate_ref import aggregate_flat_ref, bf16_ulp_distance
+    from repro_torch.kernels.aggregate import aggregate_flat, aggregate_leaves
+    from repro_torch.kernels.aggregate_ref import aggregate_flat_ref, aggregate_leaves_ref
+    from repro_torch.tree import tree_leaves
 
     main_err = None
-    for k, n in [(1, 1_000_003), (5, 1_000_003), (8, 1_000_003), *main_shapes]:
+    for k, n in [(1, 1_000_003), (5, 1_000_003), (8, 1_000_003), (13, 1_000_003), *main_shapes]:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((k, n), generator=gen, device=dev).to(dtype)
             w = torch.rand((k,), generator=gen, device=dev) + 0.05
@@ -323,26 +430,72 @@ def check_aggregate(torch, dev, gen, main_shapes):
             got = aggregate_flat(x, w)
             want = aggregate_flat_ref(x, w)
             torch.cuda.synchronize()
-            check(got.shape == (n,) and got.dtype == dtype, f"bad output {got.shape} {got.dtype}")
-            check(bool(torch.isfinite(got.float()).all()), "non-finite output")
-            abs_err = float((got.float() - want.float()).abs().max())
-            if dtype == torch.float32:
-                rel = abs_err / float(want.abs().max())
-                ok, tol = rel <= 1e-5, {"max_rel_err": rel, "limit": 1e-5}
-            else:
-                ulps = int(bf16_ulp_distance(got, want).max())
-                ok, tol = ulps <= 1, {"max_ulp": ulps, "limit_ulp": 1}
+            abs_err, rel, ulps, ok = leaves_error(torch, [got], [want])
+            tol = ({"max_rel_err": rel, "limit": 1e-5} if dtype == torch.float32
+                   else {"max_ulp": ulps, "limit_ulp": 1})
+            if k in (1, 5, 8) and n == 1_000_003:
+                # the plain version before the fmaf emulation, which the
+                # one-thread-per-element kernel equalled bit for bit here
+                matmul = (w.float() @ x.float()).to(dtype)
+                m_abs, _, _, m_ok = leaves_error(torch, [got], [matmul])
+                tol.update(matmul_max_abs_err=m_abs, matmul_bit_equal=bool(torch.equal(got, matmul)))
+                check(m_ok, f"aggregate_flat disagrees with w @ x at K={k} N={n} {dtype}")
             emit("check", kernel="aggregate_flat", K=k, N=n, dtype=str(dtype),
-                 max_abs_err=abs_err, ok=ok, **tol)
+                 max_abs_err=abs_err, bit_equal=bool(torch.equal(got, want)), ok=ok, **tol)
             check(ok, f"aggregate_flat disagrees with its plain version at K={k} N={n} {dtype}")
             if (k, n) == main_shapes[0] and dtype == torch.float32:
                 main_err = abs_err
             del x, got, want
+
+    cases = [(f"cnn K={k} {str(dtype).replace('torch.', '')}", k,
+              [l.reshape(k, -1) for l in tree_leaves(cnn_stacked(torch, dev, gen, k, dtype))])
+             for k, _ in main_shapes for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(f"ragged mixed K={k}", k, ragged_mixed_leaves(torch, dev, gen, k)) for k in (3, 8, 11)]
+    for what, k, xs in cases:
+        w = torch.rand((k,), generator=gen, device=dev) + 0.05
+        w = w / w.sum()
+        before = aggregate_flat.launches
+        got = aggregate_leaves(xs, w)
+        torch.cuda.synchronize()
+        launches = aggregate_flat.launches - before
+        want = aggregate_leaves_ref(xs, w)
+        abs_err, rel, ulps, ok = leaves_error(torch, got, want)
+        emit("check", kernel="aggregate_leaves", what=what, leaves=len(xs),
+             views=sum(x.storage_offset() > 0 for x in xs), launches=launches,
+             max_abs_err=abs_err, max_rel_err_f32=rel, max_ulp_bf16=ulps,
+             bit_equal=all(torch.equal(g, r) for g, r in zip(got, want)), ok=ok)
+        check(ok, f"aggregate_leaves disagrees with its plain version on {what}")
+        check(launches == 1, f"aggregate_leaves took {launches} launches on {what}")
+        del xs, got, want
     return main_err
 
 
-def time_aggregate(torch, dev, gen, flush, smi, main_shapes):
-    from repro_torch.kernels.aggregate import aggregate_flat
+def kernel_only_ms(torch, fn, flush, name: str, reps: int = 30):
+    """Mean duration of the device kernel ``name`` over ``reps`` calls of
+    ``fn`` (``flush`` and a spin before each) under torch.profiler: the
+    kernel alone, without the launch and event latency that CUDA events
+    around one call include."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            torch.cuda._sleep(SPIN_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    found = [(ms, c) for k, ms, c in device_kernels(prof.key_averages()) if name in k]
+    if not found:
+        return "not measured"
+    return sum(ms for ms, _ in found) / sum(c for _, c in found)
+
+
+def time_aggregate(torch, dev, gen, flushes, smi, main_shapes):
+    """The kernel and ``w @ x`` at the FedLEO shapes under each L2 flush
+    and at 8 x 2^25 (dirty and clean), the plain version once a shape
+    (dirty); at the FedLEO shapes under the clean flush also the kernel's
+    own duration from the profiler."""
+    from repro_torch.kernels.aggregate import KERNEL, aggregate_flat
     from repro_torch.kernels.aggregate_ref import aggregate_flat_ref
 
     timed = {}
@@ -351,18 +504,144 @@ def time_aggregate(torch, dev, gen, flush, smi, main_shapes):
             x = torch.randn((k, n), generator=gen, device=dev).to(dtype)
             w = torch.full((k,), 1.0 / k, device=dev)
             w_lib = w.to(dtype)
-            kern = time_ms(torch, lambda: aggregate_flat(x, w), flush)
-            plain = time_ms(torch, lambda: aggregate_flat_ref(x, w), flush)
-            lib = time_ms(torch, lambda: torch.matmul(w_lib, x), flush)
             bound, bound_by, nbytes = aggregate_bound_ms(k, n, x.element_size())
-            row = dict(K=k, N=n, dtype=str(dtype), bytes=nbytes, bound_ms=bound,
-                       bound_by=bound_by, ms=kern, plain_ms=plain, library_ms=lib,
-                       achieved_GBps=nbytes / (kern * 1e-3) / 1e9,
-                       roofline_share=bound / kern, nvidia_smi=smi)
-            emit("time", kernel="aggregate_flat", **row)
-            timed[(k, n, dtype)] = row
+            for name, flush in flushes.items():
+                if name == "warm" and n == 2**25:
+                    continue            # 1.2 GB: no L2 holds it
+                kern = time_ms(torch, lambda: aggregate_flat(x, w), flush)
+                lib = time_ms(torch, lambda: torch.matmul(w_lib, x), flush)
+                row = dict(K=k, N=n, dtype=str(dtype), flush=name, bytes=nbytes, bound_ms=bound,
+                           bound_by=bound_by, ms=kern, library_ms=lib,
+                           achieved_GBps=nbytes / (kern * 1e-3) / 1e9,
+                           roofline_share=bound / kern, nvidia_smi=smi)
+                if name == "dirty":
+                    row["plain_ms"] = time_ms(torch, lambda: aggregate_flat_ref(x, w), flush,
+                                              reps=5, warmup=1)
+                if name == "clean" and n != 2**25:
+                    alone = kernel_only_ms(torch, lambda: aggregate_flat(x, w), flush, KERNEL)
+                    row.update(kernel_only_ms=alone,
+                               kernel_only_share=(bound / alone if isinstance(alone, float)
+                                                  else "not measured"))
+                emit("time", kernel="aggregate_flat", **row)
+                timed[(k, n, dtype, name)] = row
             del x
     return timed
+
+
+def concatenated_route(torch, stacked, w):
+    """The pytree route of the reference (whose TPU kernel takes one
+    array): every leaf concatenated into one (K, N) stream, one
+    ``aggregate_flat`` launch, the result split back into views."""
+    from repro_torch.kernels.aggregate import aggregate_flat
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(stacked)
+    k = leaves[0].shape[0]
+    agg = aggregate_flat(torch.cat([l.reshape(k, -1) for l in leaves], dim=1), w)
+    parts = torch.split(agg, [l[0].numel() for l in leaves])
+    return tree_unflatten(treedef, [p.reshape(l.shape[1:]) for p, l in zip(parts, leaves)])
+
+
+def mamba2_stacked(torch, dev, gen, k):
+    """mamba2-780m's parameter tree (its real leaf shapes, 780,148,992
+    parameters) stacked over k replicas in bfloat16, random values."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    params = build_model(get_config("mamba2-780m"), ssd_impl="pallas").init(gen)
+    leaves, treedef = tree_flatten(params)
+    shapes = [tuple(l.shape) for l in leaves]
+    del params, leaves
+    torch.cuda.empty_cache()
+    return tree_unflatten(treedef, [torch.randn((k, *s), generator=gen, device=dev,
+                                                dtype=torch.bfloat16) for s in shapes])
+
+
+def time_pytree(torch, dev, gen, clean, smi):
+    """``aggregate_pytree`` (one launch over the leaves) against the
+    concatenated route on the same stacked tree in the same call: device
+    time (clean flush; three turns of each route, interleaved, the median
+    of each route's three medians), host time to enqueue one call
+    (the device not waited for), wall time of one call and its result
+    (median, synchronised after each call), peak device
+    memory above the inputs, launches, and bit-equality of the two
+    results (one kernel, the same arithmetic per element)."""
+    from repro_torch.kernels.aggregate import aggregate_flat
+    from repro_torch.kernels.aggregate_ops import aggregate_pytree
+    from repro_torch.tree import tree_leaves
+
+    rows = []
+    for tree, k, dtype in (("cnn", 8, torch.float32), ("cnn", 5, torch.float32),
+                           ("mamba2-780m", 5, torch.bfloat16)):
+        if tree == "cnn":
+            stacked, reps = cnn_stacked(torch, dev, gen, k, dtype), 30
+        else:
+            stacked, reps = mamba2_stacked(torch, dev, gen, k), 10
+        leaves = tree_leaves(stacked)
+        params = sum(l[0].numel() for l in leaves)
+        check(tree == "cnn" or params == SSM_MODELS[tree], f"{tree} has {params} parameters")
+        w = torch.rand((k,), generator=gen, device=dev) + 0.05
+        w = w / w.sum()
+        routes = {"one_launch": lambda: aggregate_pytree(stacked, w),
+                  "concatenated": lambda: concatenated_route(torch, stacked, w)}
+        outs, peak, launches = {}, {}, {}
+        for name, fn in routes.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = aggregate_flat.launches
+            outs[name] = tree_leaves(fn())
+            torch.cuda.synchronize()
+            launches[name] = aggregate_flat.launches - before
+            peak[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        equal = all(torch.equal(a, b) for a, b in zip(outs["one_launch"], outs["concatenated"]))
+        del outs
+        torch.cuda.empty_cache()
+        # in turns, three of each route
+        turns = {name: [] for name in routes}
+        for name in ("one_launch", "concatenated", "concatenated", "one_launch") * 2:
+            if len(turns[name]) < 3:
+                turns[name].append(time_ms(torch, routes[name], clean, reps=reps, warmup=2))
+        ms = {name: statistics.median(t) for name, t in turns.items()}
+        host_us, wall_us = {}, {}
+        for name, fn in routes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):                 # host cost per call, the device kept busy
+                fn()
+            host_us[name] = 1e6 * (time.perf_counter() - t0) / reps
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(reps):                 # wall per call: the call, then its result
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append(1e6 * (time.perf_counter() - t0))
+            wall_us[name] = statistics.median(walls)
+        bound, bound_by, nbytes = aggregate_bound_ms(k, params, leaves[0].element_size())
+        row = dict(tree=tree, K=k, dtype=str(dtype), leaves=len(leaves), params=params,
+                   flush="clean", bytes=nbytes, bound_ms=bound, bound_by=bound_by,
+                   one_launch_ms=ms["one_launch"], concatenated_ms=ms["concatenated"],
+                   one_launch_ms_turns=turns["one_launch"],
+                   concatenated_ms_turns=turns["concatenated"],
+                   one_launch_host_us=host_us["one_launch"],
+                   concatenated_host_us=host_us["concatenated"],
+                   one_launch_wall_us=wall_us["one_launch"],
+                   concatenated_wall_us=wall_us["concatenated"],
+                   one_launch_share=bound / ms["one_launch"],
+                   one_launch_peak_GB=peak["one_launch"], concatenated_peak_GB=peak["concatenated"],
+                   one_launch_launches=launches["one_launch"],
+                   concatenated_launches=launches["concatenated"], bit_equal=equal,
+                   nvidia_smi=smi)
+        emit("time", kernel="aggregate_pytree", **row)
+        check(equal, f"the two pytree routes differ on {tree} K={k}")
+        check(launches["one_launch"] == 1, f"aggregate_pytree took {launches['one_launch']} "
+                                           f"launches on {tree}")
+        rows.append(row)
+        del stacked, leaves, routes
+        torch.cuda.empty_cache()
+    return rows
 
 
 def run_fedleo(torch, args, smi, n_main):
@@ -397,6 +676,8 @@ def run_fedleo(torch, args, smi, n_main):
         prof = profile_round(torch, strategy, t)
         t = prof.pop("t_next")
         emit("profile", round=MAIN_ROUNDS + 1, nvidia_smi=smi, **prof)
+        check(prof["device_busy_ms"] == "not measured" or prof["aggregate_kernel_launches"] == p + 1,
+              f"the profiled round ran {prof['aggregate_kernel_launches']} aggregation kernels")
     strategy.finish(t)
     violations = [str(v) for v in strategy.env.sanitizer.report()]
     expected = MAIN_ROUNDS * (p + 1)
@@ -1041,8 +1322,11 @@ def main() -> int:
     sources = ("aggregate", "flash", "ssd")
     with ThreadPoolExecutor(max_workers=len(sources)) as ex:
         libs = dict(zip(sources, ex.map(build.build, sources)))
-    emit("build", seconds=time.perf_counter() - t0,
+    nvcc = subprocess.run([build.find_nvcc(), "--version"], check=True, capture_output=True,
+                          text=True).stdout.strip().splitlines()
+    emit("build", seconds=time.perf_counter() - t0, nvcc=nvcc[-2:],
          libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()},
+         aggregate_ptxas=ptxas_summary(build.LOGS.get("aggregate", "")),
          flash_ptxas=ptxas_summary(build.LOGS.get("flash", "")),
          ssd_ptxas=ptxas_summary(build.LOGS.get("ssd", "")))
 
@@ -1056,11 +1340,13 @@ def main() -> int:
     check_ssd(torch, dev, gen)
 
     # 4. times: kernel, plain version, one library call (never used by the port)
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)   # 256 MB > L2
-    agg_timed = time_aggregate(torch, dev, gen, flush, smi, main_shapes)
-    flash_timed = time_flash(torch, dev, gen, flush, smi)
-    ssd_row = time_ssd(torch, dev, gen, flush, smi)["mamba2"]
-    del flush
+    flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)   # 256 MB > L2
+    flushes = l2_flushes(flush_buf)
+    agg_timed = time_aggregate(torch, dev, gen, flushes, smi, main_shapes)
+    time_pytree(torch, dev, gen, flushes["clean"], smi)
+    flash_timed = time_flash(torch, dev, gen, flushes["dirty"], smi)
+    ssd_row = time_ssd(torch, dev, gen, flushes["dirty"], smi)["mamba2"]
+    del flush_buf, flushes
 
     # 5-6. the FedLEO path, and a small round against the CPU
     agg_launches = run_fedleo(torch, args, smi, n_main)
@@ -1076,7 +1362,7 @@ def main() -> int:
     ssd_launches = ssm_serve(torch, dev, smi)
     ssm_agree(torch, dev)
 
-    agg_row = agg_timed[(SCENARIO["sats_per_plane"], n_main, torch.float32)]
+    agg_row = agg_timed[(SCENARIO["sats_per_plane"], n_main, torch.float32, "dirty")]
     flash_row = flash_timed["causal"]
     print(json.dumps({"kernels": [{
         "name": "aggregate_flat",
@@ -1092,6 +1378,7 @@ def main() -> int:
         "bound_ms": agg_row["bound_ms"],
         "bound_by": agg_row["bound_by"],
         "library_ms": agg_row["library_ms"],
+        "flush": "dirty",
     }, {
         "name": "flash_attention",
         "route": "cuda",

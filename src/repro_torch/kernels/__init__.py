@@ -2,7 +2,8 @@
 
   * ``aggregate`` — weighted model aggregation (FedLEO eqs. 4/9): the FL
     server hot spot, a memory-bound streaming reduction over K stacked
-    parameter vectors.  Port of the Pallas kernel
+    parameter vectors, one launch over every leaf of a tree, each read
+    where it lies.  Port of the Pallas kernel
     ``src/repro/kernels/aggregate.py::aggregate_flat``.
   * ``flash`` — grouped-query flash attention, forward (causal mask,
     sliding window, tanh soft-cap): the attention of the LLM zoo's

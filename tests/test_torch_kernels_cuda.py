@@ -6,9 +6,10 @@ package, so it runs on a machine with the card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: aggregation in float32 relative to the largest output, 1e-5
-(the kernel and cuBLAS sum the K products in their own orders), in
-bfloat16 at most 1 ulp (both accumulate in float32 and round once).
+Tolerances: aggregation in float32 relative to the largest output, 1e-5,
+in bfloat16 at most 1 ulp.  The kernel and its plain version run the same
+fmaf chain over k in order (the plain version emulates fmaf in float64),
+so they should be bit-equal; the limits are those the kernel is held to.
 Flash attention and the SSD scan are held to their float32 plain
 versions on the same input values, within float32 rounding
 (``assert_flash_close``, ``assert_ssd_close``) plus, in bfloat16, half
@@ -19,8 +20,9 @@ limit.
 import pytest
 import torch
 
-from repro_torch.kernels.aggregate import aggregate_flat
-from repro_torch.kernels.aggregate_ref import aggregate_flat_ref, bf16_ulp_distance
+from repro_torch.kernels.aggregate import MAX_LEAVES, aggregate_flat, aggregate_leaves
+from repro_torch.kernels.aggregate_ref import (aggregate_flat_ref, aggregate_leaves_ref,
+                                               bf16_ulp_distance)
 
 
 @pytest.fixture
@@ -107,6 +109,117 @@ def test_fedleo_round_on_the_card_launches_the_kernel(cuda_device):
     res = FedLEO(task, SimConfig(horizon_hours=72.0, use_kernel=True)).run(max_rounds=2)
     assert len(res.history) == 2
     assert aggregate_flat.launches == before + 2 * (5 + 1)
+
+
+def ragged_leaves(gen, dev, k, dtypes):
+    """(K, n) leaves of every alignment, cycling through ``dtypes``: rows of
+    4 to 1.6 MB, some not a multiple of 16 bytes, and two views per dtype
+    into a wider matrix (rows 5000 elements apart): one a single element
+    in (a base off 16 bytes), one 16 bytes in (aligned, stride != n)."""
+    sizes = [1, 7, 8, 10, 288, 2049, 4096, 12_345, 401_408, 0]
+    xs = [torch.randn((k, n), generator=gen, device=dev).to(dtypes[i % len(dtypes)])
+          for i, n in enumerate(sizes)]
+    for dt in dtypes:
+        big = torch.randn((k, 5000), generator=gen, device=dev).to(dt)
+        step = 16 // big.element_size()
+        xs += [big[:, 1:4097], big[:, step:step + 4096]]
+    return xs
+
+
+def assert_leaves_close(got, want):
+    """float32 within 1e-5 of each leaf's largest output, bfloat16 within
+    1 ulp (both sides run the same fmaf chain, so they should be equal)."""
+    assert len(got) == len(want)
+    for g, r in zip(got, want):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        if r.numel() == 0:
+            continue
+        if r.dtype == torch.float32:
+            assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+        else:
+            assert int(bf16_ulp_distance(g, r).max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 8, 13])
+@pytest.mark.parametrize("dtypes", ["float32", "bfloat16", "mixed"])
+def test_aggregate_leaves_matches_plain_version(cuda_device, k, dtypes):
+    kinds = {"float32": [torch.float32], "bfloat16": [torch.bfloat16],
+             "mixed": [torch.float32, torch.bfloat16]}[dtypes]
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    xs = ragged_leaves(gen, cuda_device, k, kinds)
+    assert any(x.storage_offset() for x in xs)
+    w = torch.rand((k,), generator=gen, device=cuda_device) + 0.05
+    w = w / w.sum()
+    before = aggregate_flat.launches
+    got = aggregate_leaves(xs, w)
+    torch.cuda.synchronize()
+    assert aggregate_flat.launches == before + 1
+    assert_leaves_close(got, aggregate_leaves_ref(xs, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aggregate_pytree_is_one_launch_for_the_cnn_tree(cuda_device, dtype, monkeypatch):
+    from repro_torch.kernels.aggregate_ops import aggregate_pytree
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_cnn(torch.Generator().manual_seed(0))
+    stacked = tree_map(lambda p: torch.randn((8,) + tuple(p.shape), generator=gen,
+                                             device=cuda_device).to(dtype), params)
+    w = torch.rand((8,), generator=gen, device=cuda_device) + 0.05
+    w = w / w.sum()
+
+    def no_cat(*args, **kwargs):
+        raise AssertionError("aggregate_pytree concatenated its leaves")
+
+    monkeypatch.setattr(torch, "cat", no_cat)
+    before = aggregate_flat.launches
+    got = aggregate_pytree(stacked, w)
+    torch.cuda.synchronize()
+    assert aggregate_flat.launches == before + 1
+    monkeypatch.undo()
+    want = [l.reshape(8, -1) for l in tree_leaves(stacked)]
+    assert_leaves_close([l.reshape(-1) for l in tree_leaves(got)], aggregate_leaves_ref(want, w))
+
+
+@pytest.mark.cuda
+def test_aggregate_leaves_splits_a_tree_larger_than_one_table(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    n_leaves = 2 * MAX_LEAVES + 100
+    xs = [torch.randn((5, 3 + i % 40), generator=gen, device=cuda_device)
+          for i in range(n_leaves)]
+    xs = [x if i % 3 else x.bfloat16() for i, x in enumerate(xs)]
+    w = torch.full((5,), 0.2, device=cuda_device)
+    before = aggregate_flat.launches
+    got = aggregate_leaves(xs, w)
+    torch.cuda.synchronize()
+    assert aggregate_flat.launches == before + 3
+    assert_leaves_close(got, aggregate_leaves_ref(xs, w))
+
+
+@pytest.mark.cuda
+def test_aggregate_leaves_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros((3, 10), device=cuda_device)
+    w = torch.full((3,), 1 / 3, device=cuda_device)
+    before = aggregate_flat.launches
+    with pytest.raises(TypeError):
+        aggregate_leaves([x, x.half()], w)
+    with pytest.raises(ValueError, match="contiguous"):
+        aggregate_leaves([x.t().contiguous().t()], w)
+    with pytest.raises(ValueError):
+        aggregate_leaves([x, torch.zeros((4, 10), device=cuda_device)], w)
+    with pytest.raises(ValueError):
+        aggregate_leaves([x.reshape(3, 2, 5)], w)
+    with pytest.raises(ValueError, match="float32"):
+        aggregate_leaves([x], w.double())
+    with pytest.raises(ValueError):
+        aggregate_leaves([x], w.cpu())
+    with pytest.raises(ValueError):
+        aggregate_leaves([x.cpu()], w)
+    assert aggregate_flat.launches == before
 
 
 # --- flash attention ---------------------------------------------------------------
