@@ -39,32 +39,54 @@ script exits non-zero without a result line:
   6. agree       — a small FedLEO round on the card against the same
                    round on the CPU (which the CPU tests hold to the JAX
                    package).
-  7. serve       — the serving path: gemma-7b at full width and depth in
+  7. baselines   — Table II: each of the 9 baselines on the main path's
+                   scenario and CNN, 2 rounds (FedSpace to its first
+                   buffer flush), one K1 launch per ``weighted_average``
+                   call; FedLEO's 2-round time below FedAvg's.
+  8. baselines_agree — one round of each baseline at phase ``agree``'s
+                   size, card against CPU.
+  9. unet        — FedLEO with Fig. 5's U-Net at full width (285,970
+                   parameters) on the DeepGlobe-like data, 3 rounds, its
+                   ``local_train`` share of each round; pixel accuracy
+                   must rise; a small U-Net round card against CPU.
+ 10. fleet       — the main path's FedLEO run on a heterogeneous fleet
+                   (gemma-7b and mamba2-780m planes priced by the
+                   roofline): round times equal the CPU's and differ from
+                   the uniform fleet's; the all-default profile keeps the
+                   uniform round times.
+ 11. multitenant — two jobs (FedLEO, FedAvgStar) under the JobScheduler on
+                   one shared ledger; one job through the scheduler
+                   against the standalone run.
+                   Phases 7, 9, 10 and 11 reset the launch count just
+                   before they drive their strategies and read it just
+                   after; each also prints its wall seconds on a line of
+                   its own (``"phase": "wall"``).
+ 12. serve       — the serving path: gemma-7b at full width and depth in
                    bfloat16, prefill through the CUDA flash kernel
                    (``make_prefill_step``; its tensor-core kernel alone,
                    by the profile's kernel names) and greedy decoding
                    against the KV cache (``make_serve_step``), launch
                    counts reset just before and read just after.
-  8. serve_agree — prefill (kernel) against teacher-forced decode (cache
+ 13. serve_agree — prefill (kernel) against teacher-forced decode (cache
                    path) at full width; smoke configs on the card
                    against the CPU.
-  9. ssm_serve   — the SSM serving path, after gemma's weights are freed:
+ 14. ssm_serve   — the SSM serving path, after gemma's weights are freed:
                    mamba2-780m and zamba2-1.2b at full width and depth
                    in bfloat16, prefill through the CUDA SSD kernel (its
                    tensor-core kernel alone, by the profile's kernel
                    names; zamba2's shared attention through the flash
                    kernel), greedy decoding against the recurrent cache,
                    launch counts reset just before and read just after.
- 10. ssm_agree   — SSM prefill (kernel) against teacher-forced decode
+ 15. ssm_agree   — SSM prefill (kernel) against teacher-forced decode
                    (recurrence, no kernel) at full width; smoke configs
                    on the card against the CPU at a ragged S.
 
 With --profile, one more FedLEO round runs after the launch counts are
-read, under torch.profiler: its wall time split into local training,
+read, under torch.profiler, after phase ``main`` and after phase ``unet``: its wall time split into local training,
 aggregation, evaluation and the rest (scheduling), each range closed by
 a device synchronise, the device's kernel time by name with its busy
 share, and what ran inside the aggregation ranges: no concatenation
-(phase ``profile``).
+(phases ``profile`` and ``unet_profile``).
 
 Then the kernels line, the nvidia-smi line and, last, the result line.
 TF32 is off for matmuls and convolutions, so float32 stays float32.
@@ -140,6 +162,27 @@ SSD_TIME_CASES = {"mamba2": (SERVE_BATCH, SERVE_SEQ, 48, 64, 1, 128),
                   "zamba2": (SERVE_BATCH, SERVE_SEQ, 64, 64, 1, 64),
                   "mamba2_b1": (1, SERVE_SEQ, 48, 64, 1, 128)}
 SSM_MODELS = {"mamba2-780m": 780_148_992, "zamba2-1.2b": 1_104_937_856}
+# Table II's baselines run 2 rounds (server events, for the asynchronous
+# ones); FedSpace runs to its 10th arrival, where its buffer (a quarter of
+# the 40 clients) first folds into the model, and FedSat-ideal to its
+# 784th, where an orbital period (6,950 s) has passed and its buffer of 784
+# arrivals first folds in (at the full-width CNN's payload; a narrower
+# model's shorter transfers make it tens of thousands of arrivals, so
+# phase baselines_agree runs FedSat-ideal for 1 buffered round).
+BASELINE_ROUNDS = {"FedSpace": 10, "FedSat-ideal": 784}
+AGREE_BASELINE_ROUNDS = {"FedSpace": 10}
+# K1's shapes on the FL paths: (K, tree) stacks of the full-width CNN and
+# U-Net trees, float32.  K = 2: an asynchronous arrival mixed into the
+# global model; 5: FedLEO's global model, and FedISL's; 8: a plane's
+# partial; 10: FedSpace's buffer; 40: a star round (FedAvg, FedSatSched,
+# FedHAP); 784: FedSat-ideal's first buffer.
+FL_TREE_SHAPES = [("cnn", 2), ("cnn", 5), ("cnn", 8), ("cnn", 10), ("cnn", 40), ("cnn", 784),
+                  ("unet", 5), ("unet", 8)]
+# Fig. 5's U-Net at init_unet's defaults: 20 local epochs executed, as the
+# simulated clock charges (at 8, pixel accuracy stays at the all-background
+# share for 3 rounds)
+UNET_PARAMS, UNET_LEAVES, UNET_ROUNDS, UNET_SIM_EPOCHS = 285_970, 28, 3, 20
+FLEET_ARCHS = ["gemma-7b", "mamba2-780m", "gemma-7b", "mamba2-780m", None]
 
 
 def ptxas_summary(log: str) -> dict:
@@ -392,14 +435,16 @@ def leaves_error(torch, got, want):
     return abs_err, rel, ulps, rel <= 1e-5 and ulps <= 1
 
 
-def cnn_stacked(torch, dev, gen, k, dtype):
-    """The paper's CNN at full width (421,642 parameters, 8 leaves)
-    stacked over k clients, random values from ``gen``."""
-    from repro_torch.models.cnn import init_cnn
+def model_stacked(torch, dev, gen, model, k, dtype):
+    """A model's tree at full width stacked over k clients, random values
+    from ``gen``: the paper's CNN (421,642 parameters, 8 leaves) or the
+    U-Net at init_unet's defaults (285,970 parameters, 28 leaves)."""
+    from repro_torch.models.cnn import init_cnn, init_unet
     from repro_torch.tree import tree_map
 
+    init = {"cnn": init_cnn, "unet": init_unet}[model]
     return tree_map(lambda p: torch.randn((k, *p.shape), generator=gen, device=dev).to(dtype),
-                    init_cnn(torch.Generator().manual_seed(0)))
+                    init(torch.Generator().manual_seed(0)))
 
 
 def ragged_mixed_leaves(torch, dev, gen, k):
@@ -417,11 +462,14 @@ def ragged_mixed_leaves(torch, dev, gen, k):
 
 
 def check_aggregate(torch, dev, gen, main_shapes):
+    """K1 against its plain version: flat (K, N) stacks, the FL paths'
+    trees at every (model, K) of FL_TREE_SHAPES, and ragged mixed leaves.
+    Returns the largest error at a shape the FL paths give the kernel."""
     from repro_torch.kernels.aggregate import aggregate_flat, aggregate_leaves
     from repro_torch.kernels.aggregate_ref import aggregate_flat_ref, aggregate_leaves_ref
     from repro_torch.tree import tree_leaves
 
-    main_err = None
+    main_err = 0.0
     for k, n in [(1, 1_000_003), (5, 1_000_003), (8, 1_000_003), (13, 1_000_003), *main_shapes]:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((k, n), generator=gen, device=dev).to(dtype)
@@ -443,15 +491,21 @@ def check_aggregate(torch, dev, gen, main_shapes):
             emit("check", kernel="aggregate_flat", K=k, N=n, dtype=str(dtype),
                  max_abs_err=abs_err, bit_equal=bool(torch.equal(got, want)), ok=ok, **tol)
             check(ok, f"aggregate_flat disagrees with its plain version at K={k} N={n} {dtype}")
-            if (k, n) == main_shapes[0] and dtype == torch.float32:
-                main_err = abs_err
+            if (k, n) in main_shapes and dtype == torch.float32:
+                main_err = max(main_err, abs_err)
             del x, got, want
 
-    cases = [(f"cnn K={k} {str(dtype).replace('torch.', '')}", k,
-              [l.reshape(k, -1) for l in tree_leaves(cnn_stacked(torch, dev, gen, k, dtype))])
-             for k, _ in main_shapes for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(f"ragged mixed K={k}", k, ragged_mixed_leaves(torch, dev, gen, k)) for k in (3, 8, 11)]
-    for what, k, xs in cases:
+    def tree(model, k, dtype):
+        return [l.reshape(k, -1) for l in tree_leaves(model_stacked(torch, dev, gen, model, k, dtype))]
+
+    cases = [(f"{model} K={k} float32", True, k, lambda m=model, k=k: tree(m, k, torch.float32))
+             for model, k in FL_TREE_SHAPES]
+    cases += [(f"cnn K={k} bfloat16", False, k, lambda k=k: tree("cnn", k, torch.bfloat16))
+              for k, _ in main_shapes]
+    cases += [(f"ragged mixed K={k}", False, k, lambda k=k: ragged_mixed_leaves(torch, dev, gen, k))
+              for k in (3, 8, 11)]
+    for what, on_path, k, make in cases:
+        xs = make()
         w = torch.rand((k,), generator=gen, device=dev) + 0.05
         w = w / w.sum()
         before = aggregate_flat.launches
@@ -466,6 +520,8 @@ def check_aggregate(torch, dev, gen, main_shapes):
              bit_equal=all(torch.equal(g, r) for g, r in zip(got, want)), ok=ok)
         check(ok, f"aggregate_leaves disagrees with its plain version on {what}")
         check(launches == 1, f"aggregate_leaves took {launches} launches on {what}")
+        if on_path:
+            main_err = max(main_err, abs_err)
         del xs, got, want
     return main_err
 
@@ -574,7 +630,7 @@ def time_pytree(torch, dev, gen, clean, smi):
     for tree, k, dtype in (("cnn", 8, torch.float32), ("cnn", 5, torch.float32),
                            ("mamba2-780m", 5, torch.bfloat16)):
         if tree == "cnn":
-            stacked, reps = cnn_stacked(torch, dev, gen, k, dtype), 30
+            stacked, reps = model_stacked(torch, dev, gen, "cnn", k, dtype), 30
         else:
             stacked, reps = mamba2_stacked(torch, dev, gen, k), 10
         leaves = tree_leaves(stacked)
@@ -645,7 +701,8 @@ def time_pytree(torch, dev, gen, clean, smi):
 
 
 def run_fedleo(torch, args, smi, n_main):
-    """The FedLEO path on the card; returns aggregate_flat's launches."""
+    """The FedLEO path on the card; returns aggregate_flat's launches and
+    the round times."""
     from repro_torch.core import FedLEO, SimConfig
     from repro_torch.kernels.aggregate import aggregate_flat
     from repro_torch.models.nn import count_params
@@ -681,7 +738,7 @@ def run_fedleo(torch, args, smi, n_main):
     strategy.finish(t)
     violations = [str(v) for v in strategy.env.sanitizer.report()]
     expected = MAIN_ROUNDS * (p + 1)
-    finite = all(bool(torch.isfinite(l).all()) for l in tree_leaves(strategy.global_params))
+    finite = params_finite(torch, strategy.global_params)
     emit("main", rounds=MAIN_ROUNDS, params=n_main, sim_epochs=SIM_EPOCHS,
          payload_bits=task.payload_bits, wall_s=wall, accuracy=accs,
          aggregate_flat_launches=launches, expected_launches=expected, finite=finite,
@@ -690,27 +747,353 @@ def run_fedleo(torch, args, smi, n_main):
     check(finite, "non-finite global params")
     check(not violations, f"schedule sanitizer: {violations}")
     check(accs[-1] > accs[0] and accs[-1] > 0.1, f"no learning: {accs}")
-    return launches
+    return launches, [h.t_hours for h in strategy.history[:MAIN_ROUNDS]]
 
 
 def agree_fedleo(torch):
     from repro_torch.core import FedLEO, SimConfig
-    from repro_torch.tree import tree_leaves
 
     runs = {}
     for device in ("cuda", "cpu"):
         small = FedLEO(make_task((4, 8), 16, 800, 32, 2, device),
                        SimConfig(horizon_hours=72.0, use_kernel=True))
-        res = small.run(max_rounds=1)
-        runs[device] = (res, [l.cpu() for l in tree_leaves(small.global_params)])
+        runs[device] = (small.run(max_rounds=1), small.global_params)
     (rc, pc), (rh, ph) = runs["cuda"], runs["cpu"]
-    param_err = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+    param_err = max_param_diff(pc, ph)
     same_sched = (rc.history[0].t_hours == rh.history[0].t_hours
                   and rc.history[0].events == rh.history[0].events)
     emit("agree", param_max_abs_err=param_err, limit=1e-4, same_schedule=same_sched,
          accuracy_cuda=rc.final_accuracy, accuracy_cpu=rh.final_accuracy)
     check(same_sched, "CUDA and CPU schedules differ")
     check(param_err <= 1e-4, f"CUDA and CPU params differ by {param_err}")
+
+
+# --- the rest of the paper's FL stack: every aggregation through K1 -----------------
+def reset_aggregation_counts() -> None:
+    """Zero K1's launch count and the count of ``weighted_average`` calls,
+    through which every strategy aggregates."""
+    from repro_torch.core import aggregation
+    from repro_torch.kernels.aggregate import aggregate_flat
+
+    aggregate_flat.launches = 0
+    aggregation.weighted_average.calls = 0
+
+
+def aggregation_counts():
+    """(K1 launches, weighted_average calls) since the last reset: equal
+    when every aggregation took one launch, as trees of up to MAX_LEAVES
+    leaves do, and none took the plain path."""
+    from repro_torch.core import aggregation
+    from repro_torch.kernels.aggregate import aggregate_flat
+
+    return aggregate_flat.launches, aggregation.weighted_average.calls
+
+
+def phase_wall(name: str, t0: float) -> None:
+    emit("wall", of=name, seconds=time.perf_counter() - t0)
+
+
+def params_finite(torch, params) -> bool:
+    from repro_torch.tree import tree_leaves
+
+    return all(bool(torch.isfinite(l).all()) for l in tree_leaves(params))
+
+
+def max_param_diff(a, b) -> float:
+    from repro_torch.tree import tree_leaves
+
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def run_baselines(torch, n_main, fedleo_hours):
+    """Table II on the card: each baseline on the main path's scenario and
+    full-width CNN, one K1 launch per aggregation; returns the launches."""
+    from repro_torch.core import SimConfig
+    from repro_torch.core.baselines import ALL_BASELINES
+    from repro_torch.models.nn import count_params
+
+    t0 = time.perf_counter()
+    task = make_task((32, 64), 128, SCENARIO["train"], 16, SIM_EPOCHS, None)
+    check(count_params(task.global_params) == n_main, "unexpected model width")
+    rows, launches = {}, 0
+    for name, cls in ALL_BASELINES.items():
+        rounds = BASELINE_ROUNDS.get(name, 2)
+        strategy = cls(task, SimConfig(horizon_hours=72.0, use_kernel=True))
+        reset_aggregation_counts()
+        t, walls = 0.0, []
+        for _ in range(rounds):
+            r0 = time.perf_counter()
+            t_next = strategy.run_round(t)
+            torch.cuda.synchronize()
+            check(t_next is not None, f"{name}: round found no feasible schedule")
+            walls.append(time.perf_counter() - r0)
+            t = t_next
+        n, calls = aggregation_counts()
+        strategy.finish(t)
+        violations = [str(v) for v in strategy.env.sanitizer.report()]
+        finite = params_finite(torch, strategy.global_params)
+        last = slice(-2, None)        # the last two of a long run's rounds
+        rows[name] = dict(rounds=rounds, wall_s_total=sum(walls), wall_s=walls[last],
+                          accuracy=[h.metrics["accuracy"] for h in strategy.history][last],
+                          t_hours=[h.t_hours for h in strategy.history][last],
+                          aggregate_flat_launches=n, weighted_average_calls=calls,
+                          finite=finite, schedule_violations=violations)
+        emit("baseline", name=name, **rows[name])
+        check(n == calls, f"{name}: {n} K1 launches for {calls} aggregations")
+        check(calls > 0, f"{name}: no aggregation reached the kernel")
+        check(finite, f"{name}: non-finite global params")
+        check(not violations, f"{name}: schedule sanitizer: {violations}")
+        launches += n
+    fedavg_hours = rows["FedAvg"]["t_hours"][-1]
+    emit("baselines", strategies=len(rows), aggregate_flat_launches=launches,
+         fedleo_t_hours=fedleo_hours[1], fedavg_t_hours=fedavg_hours)
+    check(fedleo_hours[1] < fedavg_hours,
+          f"FedLEO's two rounds ({fedleo_hours[1]} h) not below FedAvg's ({fedavg_hours} h)")
+    phase_wall("baselines", t0)
+    return launches
+
+
+def agree_baselines(torch):
+    """One round of each baseline (FedSpace to its first buffer flush) at
+    the small size of phase ``agree``, card against CPU."""
+    from repro_torch.core import SimConfig
+    from repro_torch.core.baselines import ALL_BASELINES
+
+    t0 = time.perf_counter()
+    tasks = {d: make_task((4, 8), 16, 800, 32, 2, d) for d in ("cuda", "cpu")}
+    worst = 0.0
+    for name, cls in ALL_BASELINES.items():
+        runs = {}
+        for device, task in tasks.items():
+            strategy = cls(task, SimConfig(horizon_hours=72.0, use_kernel=True))
+            runs[device] = (strategy, strategy.run(max_rounds=AGREE_BASELINE_ROUNDS.get(name, 1)))
+        (sc, rc), (sh, rh) = runs["cuda"], runs["cpu"]
+        same = ([h.t_hours for h in rc.history] == [h.t_hours for h in rh.history]
+                and [h.events for h in rc.history] == [h.events for h in rh.history])
+        err = max_param_diff(sc.global_params, sh.global_params)
+        worst = max(worst, err)
+        check(same, f"{name}: CUDA and CPU schedules differ")
+        check(err <= 1e-4, f"{name}: CUDA and CPU params differ by {err}")
+    emit("baselines_agree", strategies=len(ALL_BASELINES), param_max_abs_err=worst,
+         limit=1e-4, same_schedule=True)
+    phase_wall("baselines_agree", t0)
+
+
+def unet_task(device, size=64, num_samples=256, sim_epochs=UNET_SIM_EPOCHS, **unet_kw):
+    """Fig. 5's DeepGlobe-like task: the U-Net (``init_unet``'s defaults
+    unless ``unet_kw`` narrows it), IID over 5x8 satellites, Adam at
+    1e-3."""
+    from repro_torch.core import FederatedTask, TrainHyperparams
+    from repro_torch.data import make_segmentation_dataset, partition_iid
+    from repro_torch.models.cnn import apply_unet, init_unet
+    from repro_torch.optim import get_optimizer
+
+    train = make_segmentation_dataset(num_samples=num_samples, size=size, seed=0)
+    test = make_segmentation_dataset(num_samples=64, size=size, seed=9)
+    return FederatedTask(
+        init_fn=lambda r: init_unet(r, **unet_kw),
+        apply_fn=apply_unet,
+        clients=partition_iid(train, SCENARIO["num_planes"], SCENARIO["sats_per_plane"]),
+        test_set=test,
+        optimizer=get_optimizer("adam", 1e-3),
+        hp=TrainHyperparams(local_epochs=20, learning_rate=0.01, batch_size=4),
+        sim_epochs=sim_epochs,
+        device=device,
+    )
+
+
+def run_unet(torch, args, smi):
+    """FedLEO with the full-width U-Net on the DeepGlobe-like data (with
+    --profile, one more round under torch.profiler); returns
+    aggregate_flat's launches."""
+    from repro_torch.core import FedLEO, SimConfig
+    from repro_torch.models.nn import count_params
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    p = SCENARIO["num_planes"]
+    task = unet_task(None)
+    n = count_params(task.global_params)
+    check(task.device.type == "cuda", f"task on {task.device}")
+    check(n == UNET_PARAMS and len(tree_leaves(task.global_params)) == UNET_LEAVES,
+          f"unexpected U-Net: {n} parameters")
+    strategy = FedLEO(task, SimConfig(horizon_hours=72.0, use_kernel=True))
+    train_s = []
+    local_train = task.local_train
+
+    def timed_local_train(*args, **kwargs):
+        l0 = time.perf_counter()
+        out = local_train(*args, **kwargs)
+        torch.cuda.synchronize()
+        train_s[-1] += time.perf_counter() - l0
+        return out
+
+    task.local_train = timed_local_train
+    torch.cuda.reset_peak_memory_stats()
+    reset_aggregation_counts()
+    t, walls, accs = 0.0, [], []
+    for _ in range(UNET_ROUNDS):
+        train_s.append(0.0)
+        r0 = time.perf_counter()
+        t_next = strategy.run_round(t)
+        torch.cuda.synchronize()
+        check(t_next is not None, "U-Net round found no feasible schedule")
+        walls.append(time.perf_counter() - r0)
+        accs.append(strategy.history[-1].metrics["accuracy"])
+        t = t_next
+    launches, calls = aggregation_counts()
+    del task.local_train
+    if args.profile:
+        prof = profile_round(torch, strategy, t)
+        t = prof.pop("t_next")
+        emit("unet_profile", round=UNET_ROUNDS + 1, nvidia_smi=smi, **prof)
+        check(prof["device_busy_ms"] == "not measured" or prof["aggregate_kernel_launches"] == p + 1,
+              f"the profiled round ran {prof['aggregate_kernel_launches']} aggregation kernels")
+    strategy.finish(t)
+    violations = [str(v) for v in strategy.env.sanitizer.report()]
+    expected = UNET_ROUNDS * (p + 1)
+    finite = params_finite(torch, strategy.global_params)
+    emit("unet", params=n, leaves=UNET_LEAVES, rounds=UNET_ROUNDS, sim_epochs=UNET_SIM_EPOCHS,
+         wall_s=walls, local_train_s=train_s,
+         local_train_share=[a / b for a, b in zip(train_s, walls)],
+         pixel_accuracy=accs, t_hours=[h.t_hours for h in strategy.history],
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         aggregate_flat_launches=launches, expected_launches=expected,
+         weighted_average_calls=calls, finite=finite,
+         schedule_violations=violations, nvidia_smi=smi)
+    check(launches == calls == expected,
+          f"aggregate_flat launched {launches} times for {calls} aggregations, expected {expected}")
+    check(finite, "non-finite U-Net params")
+    check(not violations, f"schedule sanitizer: {violations}")
+    check(accs[-1] > accs[0], f"U-Net pixel accuracy did not rise: {accs}")
+
+    # a small U-Net round on the card against the same round on the CPU
+    runs = {}
+    for device in ("cuda", "cpu"):
+        small = FedLEO(unet_task(device, size=32, num_samples=80, sim_epochs=2, base=4, depth=2),
+                       SimConfig(horizon_hours=72.0, use_kernel=True))
+        runs[device] = (small, small.run(max_rounds=1))
+    (sc, rc), (sh, rh) = runs["cuda"], runs["cpu"]
+    same = (rc.history[0].t_hours == rh.history[0].t_hours
+            and rc.history[0].events == rh.history[0].events)
+    err = max_param_diff(sc.global_params, sh.global_params)
+    emit("unet_agree", param_max_abs_err=err, limit=1e-4, same_schedule=same,
+         accuracy_cuda=rc.final_accuracy, accuracy_cpu=rh.final_accuracy)
+    check(same, "U-Net: CUDA and CPU schedules differ")
+    check(err <= 1e-4, f"U-Net: CUDA and CPU params differ by {err}")
+    phase_wall("unet", t0)
+    return launches
+
+
+def run_fleet(torch, uniform_hours):
+    """The main path's FedLEO run on a heterogeneous fleet (gemma-7b and
+    mamba2-780m planes on the orbital GPU tier, one plane at the paper's
+    uniform timing); returns aggregate_flat's launches."""
+    from repro_torch.compute import SatelliteComputeProfile
+    from repro_torch.core import FedLEO, SimConfig
+
+    t0 = time.perf_counter()
+    p, rounds = SCENARIO["num_planes"], 2
+    hetero = SatelliteComputeProfile.per_plane(FLEET_ARCHS, device="orbital-gpu", smoke=False)
+
+    def run(compute, device, sim_epochs):
+        task = make_task((32, 64), 128, SCENARIO["train"], 16, sim_epochs, device)
+        strategy = FedLEO(task, SimConfig(horizon_hours=72.0, use_kernel=True, compute=compute))
+        return strategy, strategy.run(max_rounds=rounds)
+
+    reset_aggregation_counts()
+    strategy, res = run(hetero, None, SIM_EPOCHS)
+    launches, calls = aggregation_counts()
+    hours = [h.t_hours for h in res.history]
+    # the clock does not see the executed epochs: one epoch on the CPU
+    _, res_cpu = run(hetero, "cpu", 1)
+    _, res_default = run(SatelliteComputeProfile(), None, 1)
+    cpu_hours = [h.t_hours for h in res_cpu.history]
+    default_hours = [h.t_hours for h in res_default.history]
+    finite = params_finite(torch, strategy.global_params)
+    violations = [str(v) for v in strategy.env.sanitizer.report()]
+    expected = rounds * (p + 1)
+    emit("fleet", archs=FLEET_ARCHS, device="orbital-gpu", rounds=rounds, t_hours=hours,
+         t_hours_cpu=cpu_hours, t_hours_uniform=uniform_hours[:rounds],
+         t_hours_default_profile=default_hours,
+         accuracy=[h.metrics["accuracy"] for h in res.history],
+         plane_seconds_per_sample=[r["seconds_per_sample"] for r in strategy.compute.plane_summary()],
+         aggregate_flat_launches=launches, expected_launches=expected,
+         weighted_average_calls=calls, finite=finite, schedule_violations=violations)
+    check(launches == calls == expected,
+          f"aggregate_flat launched {launches} times for {calls} aggregations, expected {expected}")
+    check(len(hours) == rounds and hours == cpu_hours,
+          f"fleet round times differ on the CPU: {hours} against {cpu_hours}")
+    check(hours != uniform_hours[:rounds], "the heterogeneous fleet did not change the round times")
+    check(default_hours == uniform_hours[:rounds],
+          f"the all-default profile changed the round times: {default_hours}")
+    check(finite, "non-finite fleet params")
+    check(not violations, f"schedule sanitizer: {violations}")
+    phase_wall("fleet", t0)
+    return launches
+
+
+def run_multitenant(torch):
+    """Two concurrent jobs (FedLEO and FedAvgStar, each on the full-width
+    CNN) under the JobScheduler on one shared ledger; then one job through
+    the scheduler against the standalone run.  Returns aggregate_flat's
+    launches in the two-job run."""
+    from repro_torch.core import FedLEO, SimConfig
+    from repro_torch.core.baselines import FedAvgStar
+    from repro_torch.multitenant import JobScheduler, JobSpec
+
+    t0 = time.perf_counter()
+    sim = SimConfig(horizon_hours=72.0, use_kernel=True)
+
+    def task():
+        return make_task((32, 64), 128, SCENARIO["train"], 16, SIM_EPOCHS, None)
+
+    def schedule(jobs):
+        sched, runners = JobScheduler(sim, sanitize=True), {}
+        for name, cls in jobs:
+            def factory(env, name=name, cls=cls):
+                runners[name] = cls(task(), sim, env)
+                return runners[name]
+            sched.submit(JobSpec(name=name, rounds=2), factory)
+        return sched.run(), runners
+
+    reset_aggregation_counts()
+    records, runners = schedule([("fedleo", FedLEO), ("fedavg", FedAvgStar)])
+    launches, calls = aggregation_counts()
+    violations = {n: [str(v) for v in r.env.sanitizer.report()] for n, r in runners.items()}
+    finite = all(params_finite(torch, r.global_params) for r in runners.values())
+    emit("multitenant", jobs=[dataclasses.asdict(r) for r in records],
+         t_hours={n: [h.t_hours for h in r.history] for n, r in runners.items()},
+         accuracy={n: [h.metrics["accuracy"] for h in r.history] for n, r in runners.items()},
+         aggregate_flat_launches=launches, weighted_average_calls=calls,
+         finite=finite, schedule_violations=violations)
+    check([r.status for r in records] == ["finished", "finished"],
+          f"job records: {[r.status for r in records]}")
+    check(launches == calls > 0, f"{launches} K1 launches for {calls} aggregations")
+    check(not any(violations.values()), f"schedule sanitizer: {violations}")
+    check(finite, "non-finite job params")
+
+    # one job through the scheduler is the standalone run, with
+    # deterministic cuDNN algorithms so that training repeats exactly
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone = FedAvgStar(task(), sim).run(max_rounds=2)
+        _, solo = schedule([("solo", FedAvgStar)])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = alone.history, solo["solo"].history
+    same = ([h.t_hours for h in a] == [h.t_hours for h in b]
+            and [h.round_index for h in a] == [h.round_index for h in b])
+    metric_err = max(abs(x.metrics[k] - y.metrics[k]) for x, y in zip(a, b) for k in x.metrics)
+    emit("multitenant_solo", same_schedule=same, metrics_max_abs_err=metric_err,
+         metrics_equal=[x.metrics for x in a] == [y.metrics for y in b], limit=1e-6,
+         cudnn_deterministic=True)
+    check(len(a) == len(b) == 2 and same, "the scheduled job's rounds differ from the standalone run")
+    check(metric_err <= 1e-6, f"the scheduled job's metrics differ by {metric_err}")
+    phase_wall("multitenant", t0)
+    return launches
 
 
 # --- the flash-attention kernel (serving path) ----------------------------------------
@@ -1349,16 +1732,25 @@ def main() -> int:
     del flush_buf, flushes
 
     # 5-6. the FedLEO path, and a small round against the CPU
-    agg_launches = run_fedleo(torch, args, smi, n_main)
+    agg_launches, fedleo_hours = run_fedleo(torch, args, smi, n_main)
     agree_fedleo(torch)
 
-    # 7-8. the serving path, and its agreement checks
+    # 7-11. the rest of the paper's FL stack, every aggregation through K1
+    agg_launches += run_baselines(torch, n_main, fedleo_hours)
+    agree_baselines(torch)
+    agg_launches += run_unet(torch, args, smi)
+    agg_launches += run_fleet(torch, fedleo_hours)
+    agg_launches += run_multitenant(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 12-13. the serving path, and its agreement checks
     flash_launches = serve(torch, dev, smi)
     serve_agree(torch, dev)
     gc.collect()                # gemma's weights are gone before the SSM phases
     torch.cuda.empty_cache()
 
-    # 9-10. the SSM serving path, and its agreement checks
+    # 14-15. the SSM serving path, and its agreement checks
     ssd_launches = ssm_serve(torch, dev, smi)
     ssm_agree(torch, dev)
 

@@ -37,7 +37,12 @@ def weighted_average(
       stacked: pytree with leaves of shape (K, ...).
       weights: (K,) nonnegative weights; normalized to sum to 1 in fp32.
       use_kernel: route through the aggregation kernel.
+
+    ``weighted_average.calls`` counts the calls (a caller may reset it):
+    with ``use_kernel`` on the card, each makes one aggregation kernel
+    launch for a tree of up to ``kernels.aggregate.MAX_LEAVES`` leaves.
     """
+    weighted_average.calls += 1
     w = torch.as_tensor(weights, dtype=torch.float32, device=_device(stacked))
     w = w / torch.sum(w)
     if use_kernel:
@@ -49,6 +54,9 @@ def weighted_average(
         return torch.tensordot(w, x.float(), dims=1).to(x.dtype)
 
     return tree_map(leaf, stacked)
+
+
+weighted_average.calls = 0
 
 
 def partial_aggregate(

@@ -13,9 +13,7 @@ until the simulated-hours budget is exhausted, evaluating the global
 model after every step to produce the accuracy-vs-time history that the
 paper's Table II and Fig. 5 report.
 
-The counterpart of ``src/repro/core/engine.py``.  The heterogeneous
-fleet compute model (``SimConfig.compute``) is not ported yet: only
-None is accepted, which is the paper's uniform fleet.
+The counterpart of ``src/repro/core/engine.py``.
 """
 from __future__ import annotations
 
@@ -29,6 +27,8 @@ import torch
 from repro_torch.comms.environment import CommsEnvironment
 from repro_torch.comms.isl import ISLConfig
 from repro_torch.comms.link import LinkConfig
+from repro_torch.compute.fleet import FleetComputeModel
+from repro_torch.compute.profiles import SatelliteComputeProfile
 from repro_torch.core.fltask import FederatedTask
 from repro_torch.obs import (
     NULL_RECORDER,
@@ -124,14 +124,19 @@ class SimConfig:
     # Observability (repro_torch.obs): attach a TraceRecorder to the
     # strategy's CommsEnvironment — every plan/commit/release/readmit,
     # rolling-horizon extension and FL round lands in a typed,
-    # sim-timestamped trace (export via repro.obs.export, report via
-    # ``python -m repro.obs.report``).  Tracing is zero-interference:
+    # sim-timestamped trace (export via repro_torch.obs.export, report
+    # via ``python -m repro_torch.obs.report``).  Tracing is zero-interference:
     # a traced run is bit-identical to an untraced one (schedules,
     # sink decisions, metrics) — equivalence-tested.  Off by default.
     trace: bool = False
-    # Heterogeneous fleet compute model: not ported yet, so only None
-    # (the paper's uniform fleet) is accepted.
-    compute: Optional[Any] = None
+    # Heterogeneous fleet compute model (repro_torch.compute): assigns each
+    # plane/satellite a device tier + model arch whose roofline step
+    # time replaces eq. (11)'s uniform c_k/f_k, and (opt-in) whose real
+    # param count replaces the task's uniform payload.  None (default)
+    # keeps the paper's uniform fleet — bit-identical schedules, sink
+    # decisions and metrics (equivalence-tested); so does a profile
+    # whose every assignment is the degenerate ``arch=None`` tier.
+    compute: Optional[SatelliteComputeProfile] = None
     seed: int = 0
 
     @property
@@ -219,10 +224,17 @@ class FLStrategy:
         # JobScheduler through ``run_round`` directly
         self.history: List[HistoryPoint] = []
         self._completed = True
+        # heterogeneous fleet compute model: resolved strategy-side
+        # from SimConfig.compute (falling back to any model already on
+        # the task) WITHOUT mutating the shared task, so one task can
+        # serve arms with different fleets.  None = uniform paper fleet.
         if sim.compute is not None:
-            raise NotImplementedError(
-                "the heterogeneous fleet compute model is not ported yet"
+            num_planes = getattr(sim.constellation, "num_planes", 0)
+            self.compute: Optional[FleetComputeModel] = FleetComputeModel(
+                sim.compute, num_planes
             )
+        else:
+            self.compute = task.compute
         # multi-tenant release floor: with a SHARED ledger, dropping
         # bookings up to this strategy's own clock could purge
         # intervals a slower concurrent job still prices against — the
@@ -252,17 +264,42 @@ class FLStrategy:
         return float(self.task.payload_bits)
 
     def train_time_s(self, client_id: int) -> float:
-        """Eq. (11) training time of one client (uniform paper fleet)."""
+        """Eq. (11) training time of one client, heterogeneous-fleet
+        aware: with a compute model resolved, the client satellite's
+        roofline per-sample cost prices the batches the task actually
+        executes; otherwise (or for degenerate-tier satellites) this is
+        exactly ``task.train_time_s``."""
+        if self.compute is not None:
+            c = self.task.clients[client_id]
+            hp = self.task.hp
+            n_batches, bsz = self.task.executed_batches(client_id)
+            t = self.compute.train_time_s(
+                c.plane, c.slot, local_epochs=hp.local_epochs,
+                n_batches=n_batches, batch_size=bsz,
+            )
+            if t is not None:
+                return t
         return self.task.train_time_s(client_id)
 
     def sat_payload_bits(self, plane: int, slot: int = 0) -> float:
         """Comm payload z|N| of satellite (plane, slot): the task's
-        uniform payload."""
+        uniform payload unless the compute profile opts into
+        arch-derived sizes (``payload_from_arch``)."""
+        if self.compute is not None and self.compute.payload_aware:
+            bits = self.compute.payload_bits(plane, slot)
+            if bits is not None:
+                return float(bits)
         return float(self.task.payload_bits)
 
     def group_payload_bits(self, planes: Sequence[int]) -> float:
-        """Payload for a multi-plane group transfer: the uniform payload."""
-        return self.payload_bits
+        """Conservative payload for a multi-plane group transfer: the
+        max over member planes' slot-0 payloads (intra-plane
+        propagation ships one aggregated model per plane, so the widest
+        member bounds every hop).  Equals ``payload_bits`` for
+        payload-unaware fleets."""
+        if self.compute is None or not self.compute.payload_aware:
+            return self.payload_bits
+        return max(self.sat_payload_bits(p) for p in planes)
 
     def plane_clients(self, plane: int) -> List[int]:
         return self.task.clients_on_plane(plane)

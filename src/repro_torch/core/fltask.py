@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.compute.fleet import FleetComputeModel
 from repro_torch.data.partition import ClientData, stack_client_arrays
 from repro_torch.data.synthetic import Dataset
 from repro_torch.device import resolve_device
@@ -73,7 +74,7 @@ class FederatedTask:
         rng: Optional[torch.Generator] = None,
         sim_epochs: Optional[int] = None,
         payload_bits_override: Optional[int] = None,
-        compute: Optional[Any] = None,
+        compute: Optional[FleetComputeModel] = None,
         device: Optional[Union[str, torch.device]] = None,
     ):
         """Args:
@@ -84,15 +85,15 @@ class FederatedTask:
             hp.local_epochs via eq. (11).
           payload_bits_override: charge the comm model for this payload
             size z|N| instead of the model's true size.
-          compute: the heterogeneous fleet compute model is not ported
-            yet; only None is accepted.
+          compute: heterogeneous fleet compute model (repro_torch.compute)
+            — ``train_time_s`` consults it per client before falling back
+            to the uniform eq. (11) c_k/f_k constant.  None (default)
+            keeps the paper's uniform fleet; ``FLStrategy`` also
+            resolves one from ``SimConfig.compute`` without mutating
+            the task, so one task can be shared across arms.
           device: where parameters and data live; None means "cuda",
             which raises when no card is present.
         """
-        if compute is not None:
-            raise NotImplementedError(
-                "the heterogeneous fleet compute model is not ported yet"
-            )
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
         self.clients = list(clients)
@@ -100,6 +101,7 @@ class FederatedTask:
         self.optimizer = optimizer
         self.hp = hp
         self.loss_fn = loss_fn
+        self.compute = compute
         self.sim_epochs = sim_epochs if sim_epochs is not None else hp.local_epochs
         rng = rng if rng is not None else torch.Generator().manual_seed(0)
         self.global_params = tree_map(
@@ -143,10 +145,21 @@ class FederatedTask:
         return max(1, m // bsz), bsz
 
     def train_time_s(self, client_id: int) -> float:
-        """Eq. (11): t_train(k) = I * n_k * b_k * c_k / f_k, charged for
-        the batches actually executed."""
+        """Eq. (11): t_train(k) = I * n_k * b_k * c_k / f_k, charged
+        for the batches actually executed.  With a fleet compute model
+        attached, c_k / f_k is replaced by the client satellite's
+        roofline per-sample cost (degenerate tiers fall through to the
+        uniform constant)."""
         hp = self.hp
         n_batches, bsz = self.executed_batches(client_id)
+        if self.compute is not None:
+            c = self.clients[client_id]
+            t = self.compute.train_time_s(
+                c.plane, c.slot, local_epochs=hp.local_epochs,
+                n_batches=n_batches, batch_size=bsz,
+            )
+            if t is not None:
+                return t
         return (
             hp.local_epochs * n_batches * bsz * hp.cycles_per_sample
         ) / hp.cpu_freq_hz

@@ -9,11 +9,12 @@ of plain functions::
 Parameters keep the reference layout — conv kernels HWIO, dense weights
 ``(in, out)`` — and activations are NHWC at every public function, so
 reference parameters load unchanged.  Layout changes to PyTorch's NCHW
-happen inside ``apply_conv`` and ``max_pool`` only.  Every ``init_*``
-draws on its generator's device.  The CNN's callers pass a CPU
-generator, so a seed gives the same weights whatever device they then
-move them to; the LLM zoo draws on the card itself (a CPU draw at full
-width would take tens of GB of host memory and minutes).
+happen inside ``apply_conv``, ``apply_conv_transpose`` and ``max_pool``
+only.  Every ``init_*`` draws on its generator's device.  The CNN's and
+the U-Net's callers pass a CPU generator, so a seed gives the same
+weights whatever device they then move them to; the LLM zoo draws on
+the card itself (a CPU draw at full width would take tens of GB of host
+memory and minutes).
 """
 from __future__ import annotations
 
@@ -94,10 +95,57 @@ def apply_conv(
     return y
 
 
+def _same_transpose_offset(ksize: int, stride: int) -> int:
+    """Where XLA's SAME transposed convolution (``lax.conv_transpose``
+    without ``transpose_kernel``) starts inside the full transposed
+    convolution: it pads the stride-dilated input with ``before`` zeros
+    (and ``ksize + stride - 2 - before`` after), so its first output is
+    ``ksize - 1 - before`` positions into the full one."""
+    total = ksize + stride - 2
+    before = ksize - 1 if stride > ksize - 1 else -(-total // 2)
+    return ksize - 1 - before
+
+
+def apply_conv_transpose(p: Dict, x: torch.Tensor, stride: int = 2) -> torch.Tensor:
+    """x: (B, H, W, C) NHWC; p["w"]: (kh, kw, C, O) HWIO -> (B, sH, sW, O).
+
+    The reference correlates the stride-dilated input with the kernel as
+    it is stored; ``F.conv_transpose2d`` scatters with the kernel, so it
+    gets the kernel flipped in both spatial axes, and its full output is
+    cut to ``stride * size`` positions from XLA's offset.  Where the
+    kernel is smaller than the stride the cut runs past the full output;
+    those positions see only padding and are zero."""
+    w = p["w"].to(x.dtype).flip(0, 1).permute(2, 3, 0, 1)   # HWIO -> (I, O, kh, kw)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=stride)
+    h, wd = stride * x.shape[1], stride * x.shape[2]
+    t0 = _same_transpose_offset(w.shape[2], stride)
+    l0 = _same_transpose_offset(w.shape[3], stride)
+    y = y[:, :, t0:t0 + h, l0:l0 + wd]
+    y = F.pad(y, (0, wd - y.shape[3], 0, h - y.shape[2]))
+    y = y.permute(0, 2, 3, 1)                            # NCHW -> NHWC
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
 def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """window x window max-pool, stride = window, VALID; NHWC in and out."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride=window)
     return y.permute(0, 2, 3, 1)
+
+
+def init_layernorm(dim: int) -> Dict:
+    return {"scale": torch.ones((dim,), dtype=torch.float32),
+            "bias": torch.zeros((dim,), dtype=torch.float32)}
+
+
+def apply_layernorm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Layer normalisation over the last axis (biased variance), in
+    ``x.dtype``."""
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
 def init_rmsnorm(dim: int) -> Dict:

@@ -1,9 +1,11 @@
 """repro_torch.obs: the observability layer of the scheduling stack.
 
 Typed, sim-timestamped scheduling traces (``TraceRecorder``), the
-per-round phase decomposition (``RoundDecomposition``) and RB
-utilization timelines; a copy of the reference's ``repro.obs``.  The
-JSONL/Perfetto exporters and the CLI reporter are not ported yet.
+per-round phase decomposition (``RoundDecomposition``), RB
+utilization timelines, JSONL + Perfetto exporters
+(``repro_torch.obs.export``) and the CLI reporter
+(``python -m repro_torch.obs.report``); copies of the reference's
+``repro.obs`` modules.
 
 Enable per run with ``SimConfig(trace=True)``; tracing is
 zero-interference — a traced run is bit-identical to an untraced one.

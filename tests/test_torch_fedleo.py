@@ -201,17 +201,24 @@ def test_entry_points_default_to_cuda():
 
 
 def test_compute_model_is_not_ported_yet():
+    """What of the fleet compute model is not ported yet: its compiled
+    mode, which needs repro_torch.launch.  A strategy pricing a round with
+    it raises rather than falling back; the analytic mode is ported, so a
+    task and a strategy take ``compute=``."""
+    from repro_torch.compute import FleetComputeModel, SatelliteComputeProfile
+
     clients, test = _datasets(tdata)
-    with pytest.raises(NotImplementedError):
-        T.FederatedTask(init_fn=lambda r: {"w": torch.zeros(2)}, apply_fn=tapply_cnn,
-                        clients=clients, test_set=test,
-                        optimizer=tget_optimizer("sgd", 0.1), compute=object(),
-                        device="cpu")
-    task = T.FederatedTask(init_fn=lambda r: {"w": torch.zeros(2)}, apply_fn=tapply_cnn,
-                           clients=clients, test_set=test,
-                           optimizer=tget_optimizer("sgd", 0.1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        T.FedLEO(task, T.SimConfig(compute=object()))
+    make = lambda compute=None: T.FederatedTask(
+        init_fn=lambda r: {"w": torch.zeros(2)}, apply_fn=tapply_cnn,
+        clients=clients, test_set=test, optimizer=tget_optimizer("sgd", 0.1),
+        compute=compute, device="cpu")
+    fleet = FleetComputeModel(SatelliteComputeProfile.per_plane(["mamba2-780m"]), 5)
+    assert make(fleet).compute is fleet
+    assert T.FedLEO(make(), T.SimConfig(compute=SatelliteComputeProfile())).compute is not None
+    compiled = SatelliteComputeProfile.per_plane(["mamba2-780m"], mode="compiled")
+    strat = T.FedLEO(make(), T.SimConfig(compute=compiled))
+    with pytest.raises(ModuleNotFoundError, match="repro_torch.launch"):
+        strat.train_time_s(make().clients_on_plane(0)[0])
 
 
 def test_sim_config_fields_and_defaults_match_reference():

@@ -2,7 +2,9 @@
 package, and its copied numpy modules stay verbatim copies.
 
   * A subprocess blocks ``jax*`` and ``repro``/``repro.*`` in
-    ``sys.meta_path``, imports repro_torch and runs one CPU FedLEO round;
+    ``sys.meta_path``, imports repro_torch (the baselines, compute,
+    multitenant and obs exporters included), runs one CPU FedLEO round
+    and one traced CPU FedAvgStar round, and reports on its trace;
     another imports the serving slice (configs, transformer, serving
     steps) and serves a smoke gemma on the CPU; a third prefills and
     decodes smoke mamba2 and zamba2 models on the CPU.
@@ -30,7 +32,12 @@ COPIED = [
     "comms/link.py", "comms/isl.py", "comms/ledger.py", "comms/routing.py",
     "comms/environment.py",
     "core/propagation.py", "core/scheduling.py", "core/fedleo.py",
+    "core/baselines.py",
+    "compute/__init__.py", "compute/fleet.py", "compute/profiles.py",
+    "compute/roofline.py",
+    "multitenant/__init__.py", "multitenant/scheduler.py",
     "obs/decomposition.py", "obs/trace.py", "obs/utilization.py",
+    "obs/_walltime.py", "obs/export.py", "obs/report.py",
     "analysis/sanitizer.py",
     "data/synthetic.py", "data/partition.py",
     "configs/__init__.py", "configs/base.py", "configs/constellations.py",
@@ -104,6 +111,17 @@ _ISOLATED_RUN = textwrap.dedent("""
     )
     res = FedLEO(task, SimConfig(horizon_hours=72.0, use_kernel=True)).run(max_rounds=1)
     assert len(res.history) == 1 and res.history[0].t_hours > 0
+    import os, tempfile
+    import repro_torch.compute, repro_torch.multitenant
+    from repro_torch.core.baselines import FedAvgStar
+    from repro_torch.obs import export, report
+    star = FedAvgStar(task, SimConfig(horizon_hours=72.0, use_kernel=True, trace=True))
+    res_star = star.run(max_rounds=1)
+    assert len(res_star.history) == 1 and res_star.history[0].t_hours > res.history[0].t_hours
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.jsonl")
+        assert export.write_trace(star.recorder, path) > 0
+        assert report.main([path]) == 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not loaded, loaded
     print("ISOLATED-OK", res.history[0].t_hours)

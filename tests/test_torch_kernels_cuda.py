@@ -185,6 +185,136 @@ def test_aggregate_pytree_is_one_launch_for_the_cnn_tree(cuda_device, dtype, mon
     assert_leaves_close([l.reshape(-1) for l in tree_leaves(got)], aggregate_leaves_ref(want, w))
 
 
+def _stacked_on_card(params, k, gen, dev):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda p: torch.randn((k,) + tuple(p.shape), generator=gen, device=dev),
+                    params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 8])
+def test_unet_tree_aggregation_is_one_launch_and_bit_equal(cuda_device, k):
+    """The full-width U-Net (28 float32 leaves) through weighted_average:
+    one launch per call, every leaf equal to the plain version's bits."""
+    from repro_torch.core.aggregation import weighted_average
+    from repro_torch.models.cnn import init_unet
+    from repro_torch.tree import tree_leaves
+
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    stacked = _stacked_on_card(init_unet(torch.Generator().manual_seed(0)), k, gen, cuda_device)
+    assert len(tree_leaves(stacked)) == 28
+    w = torch.rand((k,), generator=gen, device=cuda_device) + 0.05
+    before = aggregate_flat.launches
+    got = weighted_average(stacked, w, use_kernel=True)
+    torch.cuda.synchronize()
+    assert aggregate_flat.launches == before + 1
+    xs = [l.reshape(k, -1) for l in tree_leaves(stacked)]
+    wn = w / torch.sum(w)           # as weighted_average normalises, on the card
+    for g, r in zip(tree_leaves(got), aggregate_leaves_ref(xs, wn)):
+        assert torch.equal(g.reshape(-1), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["cnn", "unet"])
+def test_async_mix_is_one_launch_and_bit_equal(cuda_device, model):
+    """The asynchronous strategies' server mix, (1 - alpha) * global +
+    alpha * local over a K = 2 stack, as the baselines call it."""
+    import numpy as np
+
+    from repro_torch.core import aggregation
+    from repro_torch.models.cnn import init_cnn, init_unet
+    from repro_torch.tree import tree_leaves, tree_map
+
+    init = {"cnn": init_cnn, "unet": init_unet}[model]
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    params = init(torch.Generator().manual_seed(0))
+    glob, local = (tree_map(lambda p: torch.randn(p.shape, generator=gen, device=cuda_device),
+                            params) for _ in range(2))
+    alpha = 0.6 / (1.0 + 1.7) ** 0.5
+    before = aggregate_flat.launches
+    got = aggregation.weighted_average(aggregation.stack_pytrees([glob, local]),
+                                       np.asarray([1.0 - alpha, alpha]), use_kernel=True)
+    torch.cuda.synchronize()
+    assert aggregate_flat.launches == before + 1
+    w = torch.as_tensor([1.0 - alpha, alpha], dtype=torch.float32, device=cuda_device)
+    w = w / torch.sum(w)
+    xs = [torch.stack([a, b]).reshape(2, -1) for a, b in
+          zip(tree_leaves(glob), tree_leaves(local))]
+    for g, r in zip(tree_leaves(got), aggregate_leaves_ref(xs, w)):
+        assert torch.equal(g.reshape(-1), r)
+
+
+def _tiny_baseline_task():
+    from repro_torch.core import FederatedTask, TrainHyperparams
+    from repro_torch.data import make_classification_dataset, partition_noniid_by_orbit
+    from repro_torch.models.cnn import apply_cnn, init_cnn
+    from repro_torch.optim import get_optimizer
+
+    train = make_classification_dataset("mnist-like", num_samples=400, seed=0)
+    test = make_classification_dataset("mnist-like", num_samples=100, seed=99)
+    return FederatedTask(
+        init_fn=lambda r: init_cnn(r, (28, 28, 1), 10, widths=(4,), hidden=8),
+        apply_fn=apply_cnn, clients=partition_noniid_by_orbit(train, 5, 8),
+        test_set=test, optimizer=get_optimizer("sgd", 0.05),
+        hp=TrainHyperparams(batch_size=16), sim_epochs=1,
+    )
+
+
+@pytest.mark.cuda
+def test_every_baseline_launches_the_kernel_once_per_aggregation(cuda_device):
+    """One round of each Table II baseline on the card: as many K1
+    launches as weighted_average calls, so none took the plain path."""
+    from repro_torch.core import SimConfig, aggregation
+    from repro_torch.core.baselines import ALL_BASELINES
+
+    task = _tiny_baseline_task()
+    for name, cls in ALL_BASELINES.items():
+        calls, before = aggregation.weighted_average.calls, aggregate_flat.launches
+        res = cls(task, SimConfig(horizon_hours=72.0, use_kernel=True)).run(max_rounds=1)
+        assert len(res.history) == 1, name
+        assert aggregate_flat.launches - before == aggregation.weighted_average.calls - calls, name
+
+
+@pytest.mark.cuda
+def test_fedsat_ideal_buffer_flush_launches_the_kernel(cuda_device):
+    """FedSat-ideal folds its buffer in once an orbital period has passed,
+    tens of thousands of arrivals in at this width; with its next tick
+    moved to 0 its first arrival flushes: eq. (4) over the buffer and the
+    K = 2 mix into the global model, one launch each."""
+    from repro_torch.core import SimConfig, aggregation
+    from repro_torch.core.baselines import FedSat
+
+    strategy = FedSat(_tiny_baseline_task(), SimConfig(horizon_hours=72.0, use_kernel=True))
+    strategy._next_agg = 0.0
+    calls, before = aggregation.weighted_average.calls, aggregate_flat.launches
+    t, info = strategy.step(0.0)
+    torch.cuda.synchronize()
+    assert t is not None and info == {"aggregated": 1}
+    assert aggregation.weighted_average.calls - calls == 2
+    assert aggregate_flat.launches - before == 2
+
+
+@pytest.mark.cuda
+def test_unet_fedleo_round_on_the_card_launches_the_kernel(cuda_device):
+    from repro_torch.core import FedLEO, FederatedTask, SimConfig, TrainHyperparams
+    from repro_torch.data import make_segmentation_dataset, partition_iid
+    from repro_torch.models.cnn import apply_unet, init_unet
+    from repro_torch.optim import get_optimizer
+
+    task = FederatedTask(
+        init_fn=lambda r: init_unet(r, base=4, depth=2), apply_fn=apply_unet,
+        clients=partition_iid(make_segmentation_dataset(num_samples=80, size=32, seed=0), 5, 8),
+        test_set=make_segmentation_dataset(num_samples=16, size=32, seed=9),
+        optimizer=get_optimizer("adam", 1e-3),
+        hp=TrainHyperparams(local_epochs=20, learning_rate=0.01, batch_size=4), sim_epochs=1,
+    )
+    before = aggregate_flat.launches
+    res = FedLEO(task, SimConfig(horizon_hours=72.0, use_kernel=True)).run(max_rounds=1)
+    assert len(res.history) == 1
+    assert aggregate_flat.launches == before + 5 + 1
+
+
 @pytest.mark.cuda
 def test_aggregate_leaves_splits_a_tree_larger_than_one_table(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
