@@ -13,8 +13,10 @@ script exits non-zero without a result line:
   3. check       — each kernel against its plain PyTorch version on the
                    card, at ragged shapes and at the main paths' shapes;
                    the aggregation kernel also over whole leaf lists:
-                   the CNN's stacked tree (one launch) and a ragged
-                   mixed-dtype list with strided and offset views.
+                   the CNN's stacked tree (one launch), a ragged
+                   mixed-dtype list with strided and offset views, and
+                   the training phase's trees (mamba2-780m's parameters
+                   and Adam state over 2 replicas, one launch each).
   4. time        — kernel, plain version and one library call (CUDA
                    events, median of 30, a device spin between the flush
                    and the start event), beside the kernel's bound;
@@ -80,9 +82,28 @@ script exits non-zero without a result line:
  15. ssm_agree   — SSM prefill (kernel) against teacher-forced decode
                    (recurrence, no kernel) at full width; smoke configs
                    on the card against the CPU at a ragged S.
+ 16. train       — the training path: FedLEO orbit replicas of
+                   mamba2-780m at full width (remat, Adam), 2 replicas of
+                   4 x 2048 tokens, 4 local steps, an aggregation through
+                   the aggregation kernel every 2 (2 launches each:
+                   parameters, optimizer state); loss, seconds and peak
+                   memory per step; replicas apart before each
+                   aggregation and equal after it; no flash or SSD launch.
+                   Launch counts reset just before and read just after.
+ 17. train_hybrid — zamba2-1.2b at full width, 2 plain train steps of
+                   2 x 2048 tokens (attention ``xla``).
+ 18. train_dense — gemma-7b at full width, depth cut to 2 units, the same.
+ 19. train_agree — smoke configs of the three families, card against CPU:
+                   a FedLEO local step and its aggregate with Adam, SGD
+                   and adafactor; then ``python -m repro_torch.launch.train
+                   --smoke --fedleo`` on the card, its checkpoint restored
+                   on the card equal to what it saved.
 
 With --profile, one more FedLEO round runs after the launch counts are
-read, under torch.profiler, after phase ``main`` and after phase ``unet``: its wall time split into local training,
+read, under torch.profiler, after phase ``main`` and after phase
+``unet``, and one more training local step after phase ``train``
+(``train_profile``: device busy share, products, the rest, the largest
+kernels): a round's wall time split into local training,
 aggregation, evaluation and the rest (scheduling), each range closed by
 a device synchronise, the device's kernel time by name with its busy
 share, and what ran inside the aggregation ranges: no concatenation
@@ -183,6 +204,18 @@ FL_TREE_SHAPES = [("cnn", 2), ("cnn", 5), ("cnn", 8), ("cnn", 10), ("cnn", 40), 
 # share for 3 rounds)
 UNET_PARAMS, UNET_LEAVES, UNET_ROUNDS, UNET_SIM_EPOCHS = 285_970, 28, 3, 20
 FLEET_ARCHS = ["gemma-7b", "mamba2-780m", "gemma-7b", "mamba2-780m", None]
+# training: FedLEO orbit replicas of mamba2-780m at full width (its config:
+# remat, Adam at 3e-4), R replicas of TRAIN_BATCH x TRAIN_SEQ tokens each,
+# an aggregation through K1 every TRAIN_TAU local steps; zamba2-1.2b and
+# gemma-7b (depth cut to GEMMA_TRAIN_UNITS units: 28 need ~137 GB of Adam
+# state) take plain train steps at PLAIN_TRAIN_BATCH x TRAIN_SEQ
+TRAIN_ARCH, TRAIN_REPLICAS, TRAIN_TAU, TRAIN_STEPS = "mamba2-780m", 2, 2, 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+PLAIN_TRAIN_BATCH, PLAIN_TRAIN_STEPS, GEMMA_TRAIN_UNITS = 2, 2, 2
+# train_agree: the smoke configs of the three ported families, and K1's
+# launches per aggregation (one per tree with a replicated leaf)
+TRAIN_AGREE_ARCHS = ("gemma-7b", "mamba2-780m", "zamba2-1.2b")
+TRAIN_AGREE_LAUNCHES = {"adam": 2, "adafactor": 2, "sgd": 1}
 
 
 def ptxas_summary(log: str) -> dict:
@@ -1671,10 +1704,369 @@ def ssm_agree(torch, dev):
         check(err <= 2e-3, f"{arch} smoke prefill: card and CPU differ by {err}")
 
 
+def mamba2_train_trees(torch, dev, gen, k):
+    """mamba2-780m's parameter tree and its Adam state at full width,
+    each leaf stacked over k replicas in float32 (Adam's step counter
+    int32), random values: the trees the ``train`` phase aggregates."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.optim import adam
+    from repro_torch.tree import tree_map
+
+    params = build_model(get_config(TRAIN_ARCH)).init(gen)
+    opt_state = adam(1e-3).init(params)
+
+    def stacked(p):
+        return torch.randn((k, *p.shape), generator=gen, device=dev)
+
+    trees = {"params": tree_map(stacked, params),
+             "opt_state": opt_state._replace(
+                 step=torch.randint(1, 100, (k,), generator=gen, device=dev, dtype=torch.int32),
+                 mu=tree_map(stacked, opt_state.mu),
+                 nu=tree_map(lambda p: stacked(p).abs(), opt_state.nu))}
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return trees
+
+
+def check_train_trees(torch, dev, gen):
+    """K1 at the ``train`` phase's trees (K = TRAIN_REPLICAS, mamba2-780m's
+    parameters, then its Adam state with the int32 step counter cast to
+    float32, as ``aggregate_pytree`` passes them): one launch a tree, the
+    plain version's result bit for bit.  The plain version runs on column
+    blocks of 2^26 (its float64 emulation of a whole 475M-element leaf
+    would not fit beside the trees).  Returns the largest error."""
+    from repro_torch.kernels.aggregate import DTYPES, aggregate_flat, aggregate_leaves
+    from repro_torch.kernels.aggregate_ref import aggregate_flat_ref
+    from repro_torch.tree import tree_leaves
+
+    k, block = TRAIN_REPLICAS, 1 << 26
+    trees = mamba2_train_trees(torch, dev, gen, k)
+    w = torch.rand((k,), generator=gen, device=dev) + 0.05
+    w = w / w.sum()
+    err = 0.0
+    for name in ("params", "opt_state"):
+        xs = [l.reshape(k, -1) if l.dtype in DTYPES else l.reshape(k, -1).float()
+              for l in tree_leaves(trees.pop(name))]
+        before = aggregate_flat.launches
+        got = aggregate_leaves(xs, w)
+        torch.cuda.synchronize()
+        launches = aggregate_flat.launches - before
+        abs_err, rel, bit_equal = 0.0, 0.0, True
+        for x, g in zip(xs, got):
+            leaf_err, leaf_max = 0.0, 0.0
+            for c0 in range(0, x.shape[1], block):
+                want = aggregate_flat_ref(x[:, c0:c0 + block], w)
+                part = g[c0:c0 + block]
+                check(bool(torch.isfinite(part).all()), "non-finite output")
+                leaf_err = max(leaf_err, float((part - want).abs().max()))
+                leaf_max = max(leaf_max, float(want.abs().max()))
+                bit_equal &= bool(torch.equal(part, want))
+            abs_err = max(abs_err, leaf_err)
+            rel = max(rel, leaf_err / max(leaf_max, 1e-30))
+        ok = rel <= 1e-5
+        emit("check", kernel="aggregate_leaves", what=f"{TRAIN_ARCH} {name} K={k} float32",
+             leaves=len(xs), elements=sum(x.shape[1] for x in xs), launches=launches,
+             max_abs_err=abs_err, max_rel_err_f32=rel, bit_equal=bit_equal, ok=ok)
+        check(ok and bit_equal, f"aggregate_leaves disagrees with its plain version on {name}")
+        check(launches == 1, f"aggregate_leaves took {launches} launches on {name}")
+        err = max(err, abs_err)
+        del xs, got
+        torch.cuda.empty_cache()
+    return err
+
+
+def kernel_launch_counts():
+    from repro_torch.kernels.aggregate import aggregate_flat
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.ssd import ssd_scan
+
+    return aggregate_flat.launches, flash_attention.launches, ssd_scan.launches
+
+
+def check_train_loss(loss: float, vocab: int, what: str, first: bool) -> None:
+    """Finite, and at the first step within 1.5 of ln V, as
+    tests/test_archs.py::test_train_step holds a fresh model."""
+    import math
+
+    check(math.isfinite(loss), f"{what}: loss {loss}")
+    if first:
+        check(abs(loss - math.log(vocab)) < 1.5, f"{what}: first loss {loss}, ln V {math.log(vocab)}")
+
+
+def run_train(torch, dev, smi, profile: bool):
+    """FedLEO orbit replicas at full width: mamba2-780m, R replicas of
+    TRAIN_BATCH x TRAIN_SEQ tokens each from make_token_dataset, a local
+    step at a time (``make_fedleo_local_step``), an aggregation through K1
+    every TRAIN_TAU steps (``make_fedleo_aggregate(use_kernel=True)``).
+    Launch counts reset just before and read just after; with
+    ``profile``, one more local step then runs under torch.profiler.
+    Returns K1's launches."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.kernels.aggregate import aggregate_flat
+    from repro_torch.launch.train import _batches
+    from repro_torch.models.nn import count_params
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train import TrainState
+    from repro_torch.train.fedleo_step import (make_fedleo_aggregate, make_fedleo_local_step,
+                                               replicate_for_orbits)
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    r = TRAIN_REPLICAS
+    model = build_model(cfg)
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    check(cfg.remat and model.ssd_impl == "xla", f"{TRAIN_ARCH}: remat {cfg.remat}, {model.ssd_impl}")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = count_params(params)
+    check(n_params == SSM_MODELS[TRAIN_ARCH], f"{TRAIN_ARCH} has {n_params} parameters")
+    state = replicate_for_orbits(TrainState(
+        params, opt.init(params), torch.zeros((), dtype=torch.int32, device=dev)), r)
+    del params
+    w0 = time.perf_counter()
+    ds = make_token_dataset(num_sequences=2, seq_len=2 * TRAIN_SEQ, vocab_size=cfg.vocab_size,
+                            seed=0)
+    batches = _batches(ds.x, TRAIN_BATCH, TRAIN_SEQ, np.random.default_rng(0))
+    emit("train_setup", arch=TRAIN_ARCH, params=n_params, replicas=r, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, tau=TRAIN_TAU, steps=TRAIN_STEPS, optimizer=cfg.optimizer,
+         lr=cfg.learning_rate, remat=cfg.remat, data_s=time.perf_counter() - w0,
+         state_GB=sum(l.numel() * l.element_size() for l in tree_leaves(state)) / r / 1e9)
+    local_step = make_fedleo_local_step(model, opt)
+    aggregate = make_fedleo_aggregate(use_kernel=True)
+    weights = torch.ones((r,), device=dev)
+
+    reset_aggregation_counts()
+    _, flash0, ssd0 = kernel_launch_counts()
+    agg_ms = []
+    for i in range(TRAIN_STEPS):
+        batch = {"tokens": torch.stack([next(batches)["tokens"][None]
+                                        for _ in range(r)]).to(dev)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        w0 = time.perf_counter()
+        state, metrics = local_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        losses = metrics["loss"].tolist()
+        emit("train_step", arch=TRAIN_ARCH, step=i + 1, loss=losses, seconds=wall,
+             tokens_per_s=r * TRAIN_BATCH * TRAIN_SEQ / wall,
+             peak_GB=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
+        for loss in losses:
+            check_train_loss(loss, cfg.vocab_size, f"{TRAIN_ARCH} step {i + 1}", i == 0)
+        if (i + 1) % TRAIN_TAU:
+            continue
+        differ = sum(not torch.equal(x[0], x[1]) for x in tree_leaves(state.params))
+        check(differ > 0, "the replicas are equal before an aggregation")
+        n_agg = sum(x[0].numel() for x in tree_leaves((state.params, state.opt_state))
+                    if x.ndim and x.shape[0] == r)
+        bound_ms, bound_by, nbytes = aggregate_bound_ms(r, n_agg, 4)
+        before = aggregate_flat.launches
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        w0 = time.perf_counter()
+        state = aggregate(state, weights)
+        end.record()
+        end.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - w0)
+        ms = start.elapsed_time(end)
+        launches = aggregate_flat.launches - before
+        equal = all(torch.equal(x[0], x[1]) for x in tree_leaves(state))
+        agg_ms.append(ms)
+        emit("train_aggregate", after_step=i + 1, launches=launches, replicas_equal=equal,
+             leaves_differing_before=differ, ms=ms, wall_ms=wall_ms, bound_ms=bound_ms,
+             bound_by=bound_by, bytes=nbytes, of_bound=bound_ms / ms,
+             peak_GB=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
+        check(launches == 2, f"an aggregation took {launches} K1 launches, expected 2")
+        check(equal, "the replicas differ after an aggregation")
+    launches, flash_n, ssd_n = kernel_launch_counts()
+    expected = 2 * (TRAIN_STEPS // TRAIN_TAU)
+    emit("train", aggregate_flat_launches=launches, expected=expected,
+         flash_attention_launches=flash_n - flash0, ssd_scan_launches=ssd_n - ssd0,
+         aggregate_ms=agg_ms, final_step=state.step.tolist(),
+         ln_vocab=math.log(cfg.vocab_size))
+    check(launches == expected, f"train: {launches} K1 launches, expected {expected}")
+    check(flash_n == flash0 and ssd_n == ssd0, "train launched the flash or SSD kernel")
+    phase_wall("train", t0)
+    if profile:
+        emit("train_profile", arch=TRAIN_ARCH, what="one local step of both replicas",
+             nvidia_smi=smi, profile=profile_call(torch, lambda: local_step(state, batch)))
+    del state, metrics, local_step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_plain_train(torch, dev, smi, phase, cfg, cut):
+    """PLAIN_TRAIN_STEPS ``make_train_step`` steps at PLAIN_TRAIN_BATCH x
+    TRAIN_SEQ random tokens, the config's optimizer, the reference
+    driver's attention (``xla``) and SSD (the plain chunked scan)."""
+    from repro_torch.configs import build_model
+    from repro_torch.models.nn import count_params
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train import TrainState, make_train_step
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    state = TrainState(params, opt.init(params), torch.zeros((), dtype=torch.int32, device=dev))
+    n_params = count_params(params)
+    del params
+    step = make_train_step(model, opt)
+    _, flash0, ssd0 = kernel_launch_counts()
+    for i in range(PLAIN_TRAIN_STEPS):
+        tokens = torch.randint(0, cfg.vocab_size, (PLAIN_TRAIN_BATCH, TRAIN_SEQ), generator=gen,
+                               device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        w0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        loss = float(metrics["loss"])
+        emit(f"{phase}_step", arch=cfg.name, step=i + 1, loss=loss, seconds=wall,
+             tokens_per_s=PLAIN_TRAIN_BATCH * TRAIN_SEQ / wall,
+             peak_GB=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
+        check_train_loss(loss, cfg.vocab_size, f"{cfg.name} step {i + 1}", i == 0)
+    _, flash_n, ssd_n = kernel_launch_counts()
+    emit(phase, arch=cfg.name, params=n_params, layers=cfg.num_layers, remat=cfg.remat,
+         optimizer=cfg.optimizer, batch=PLAIN_TRAIN_BATCH, seq=TRAIN_SEQ, cut=cut,
+         step=int(state.step), params_finite=params_finite(torch, state.params),
+         flash_attention_launches=flash_n - flash0, ssd_scan_launches=ssd_n - ssd0)
+    check(params_finite(torch, state.params), f"{cfg.name}: non-finite parameters")
+    check(flash_n == flash0 and ssd_n == ssd0, f"{phase} launched the flash or SSD kernel")
+    phase_wall(phase, t0)
+    del state, metrics, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def agree_train_step(torch, dev, arch, opt_name):
+    """A smoke config's FedLEO local step (2 replicas, tau 1) and its
+    aggregate through K1 on the card, the same on the CPU, float32.
+    Returns (K1 launches, largest differences)."""
+    from repro_torch.configs import build_model, get_smoke_config
+    from repro_torch.kernels.aggregate import aggregate_flat
+    from repro_torch.kernels.aggregate_ref import aggregate_flat_ref
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train import TrainState
+    from repro_torch.train.fedleo_step import (make_fedleo_aggregate, make_fedleo_local_step,
+                                               replicate_for_orbits)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_smoke_config(arch)
+    lr = 0.05 if opt_name == "sgd" else cfg.learning_rate
+    p_cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1, 2, 32),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(cfg, dtype=torch.float32, device=where)
+        opt = get_optimizer(opt_name, lr)
+        params = tree_map(lambda p: p.to(where), p_cpu)
+        state = replicate_for_orbits(TrainState(
+            params, opt.init(params), torch.zeros((), dtype=torch.int32, device=where)), 2)
+        stepped, metrics = make_fedleo_local_step(model, opt)(state, {"tokens": tokens.to(where)})
+        before = aggregate_flat.launches
+        agg = make_fedleo_aggregate(use_kernel=True)(stepped, torch.tensor([1.0, 3.0]))
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        out[key] = (metrics["loss"].cpu(), stepped, agg, aggregate_flat.launches - before)
+    loss, stepped, agg, launches = out["card"]
+    loss_cpu, stepped_cpu, _, _ = out["cpu"]
+    w = torch.tensor([0.25, 0.75], device=dev)
+    bit_equal = True                  # the card's aggregate, against K1's plain version
+    for x, m in zip(tree_leaves(stepped), tree_leaves(agg)):
+        if x.ndim and x.shape[0] == 2:
+            want = aggregate_flat_ref(x.reshape(2, -1).float(), w).to(x.dtype).reshape(x.shape[1:])
+            bit_equal &= bool(torch.equal(m[0], want) and torch.equal(m[1], want))
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    errs = {"loss": rel(loss, loss_cpu),
+            "opt_state": max([rel(a, b) for a, b in zip(tree_leaves(stepped.opt_state),
+                                                         tree_leaves(stepped_cpu.opt_state))
+                              if b.is_floating_point()], default=0.0),
+            "params_abs": max_param_diff(stepped.params, stepped_cpu.params)}
+    steps_equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves(stepped.opt_state), tree_leaves(stepped_cpu.opt_state))
+        if not b.is_floating_point())
+    return launches, bit_equal and steps_equal, errs
+
+
+def train_agree(torch, dev):
+    """Smoke configs of the three families in float32, card against CPU:
+    one FedLEO local step and its aggregate with each optimizer; then the
+    training driver on the card as a subprocess, whose last checkpoint
+    restores on the card equal to what it saved."""
+    import numpy as np
+
+    from repro_torch.ckpt import latest_step, restore_checkpoint
+    from repro_torch.configs import build_model, get_smoke_config
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train import TrainState
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    for arch in TRAIN_AGREE_ARCHS:
+        for opt_name, expected in TRAIN_AGREE_LAUNCHES.items():
+            launches, exact, errs = agree_train_step(torch, dev, arch, opt_name)
+            # losses and moments: float32 summation order on the two
+            # devices; parameters after SGD: that times the learning rate
+            ok = (launches == expected and exact and errs["loss"] <= 1e-4
+                  and errs["opt_state"] <= 1e-4 and (opt_name != "sgd" or errs["params_abs"] <= 1e-5))
+            emit("train_agree", what=f"{arch} smoke, f32, R=2, tau=1, {opt_name}: card vs CPU",
+                 launches=launches, expected_launches=expected, aggregate_bit_equal=exact,
+                 max_rel_err_loss=errs["loss"], max_rel_err_opt_state=errs["opt_state"],
+                 max_abs_err_params=errs["params_abs"], limit_rel=1e-4,
+                 limit_params_sgd=1e-5, ok=ok)
+            check(ok, f"train_agree: {arch} {opt_name}: {launches} launches, {errs}")
+
+    ckpt_dir = ROOT / "build" / "chip_smoke" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke",
+           "--fedleo", "--steps", "4", "--tau", "2", "--ckpt-dir", str(ckpt_dir),
+           "--ckpt-every", "2"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    w0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("[fedleo] step")]
+    losses = [float(l.split("loss=")[1].split()[0]) for l in lines]
+    emit("train_agree", what="launch.train --smoke --fedleo on the card", returncode=proc.returncode,
+         seconds=time.perf_counter() - w0, losses=losses,
+         aggregations=sum("[aggregated]" in l for l in lines), stderr=proc.stderr[-2000:])
+    check(proc.returncode == 0 and len(losses) == 4
+          and sum("[aggregated]" in l for l in lines) == 2, "the training driver failed")
+    cfg = get_smoke_config(TRAIN_ARCH)
+    last = latest_step(str(ckpt_dir))
+    check(last == 4, f"the driver's last checkpoint is at step {last}")
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(1))
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    template = TrainState(params, opt.init(params), torch.zeros((), dtype=torch.int32, device=dev))
+    restored = restore_checkpoint(str(ckpt_dir), last, template)
+    with np.load(ckpt_dir / f"ckpt_{last:08d}.npz") as data:
+        saved = [data[k] for k in sorted(data.files, key=lambda k: int(k.split("__")[0]))]
+    leaves = tree_leaves(restored)
+    equal = len(leaves) == len(saved) and all(
+        l.is_cuda and np.array_equal(l.cpu().numpy(), a) for l, a in zip(leaves, saved))
+    emit("train_agree", what="the driver's checkpoint restored on the card", step=last,
+         leaves=len(leaves), equal=equal, restored_step=int(restored.step))
+    check(equal and int(restored.step) == 4, "the restored checkpoint differs from the saved one")
+    phase_wall("train_agree", t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more FedLEO round after the checks")
+                    help="profile one more FedLEO round and training step after the checks")
     args = ap.parse_args()
     import torch
 
@@ -1719,6 +2111,7 @@ def main() -> int:
                    (SCENARIO["num_planes"], n_main)]          # global
     gen = torch.Generator(device=dev).manual_seed(0)
     agg_err = check_aggregate(torch, dev, gen, main_shapes)
+    agg_err = max(agg_err, check_train_trees(torch, dev, gen))
     check_flash(torch, dev, gen)
     check_ssd(torch, dev, gen)
 
@@ -1753,6 +2146,19 @@ def main() -> int:
     # 14-15. the SSM serving path, and its agreement checks
     ssd_launches = ssm_serve(torch, dev, smi)
     ssm_agree(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16-19. training: FedLEO orbit replicas with K1, plain train steps,
+    # and their agreement checks
+    from repro_torch.configs import get_config
+
+    agg_launches += run_train(torch, dev, smi, args.profile)
+    run_plain_train(torch, dev, smi, "train_hybrid", get_config("zamba2-1.2b"), cut=None)
+    run_plain_train(torch, dev, smi, "train_dense",
+                    dataclasses.replace(get_config("gemma-7b"), num_layers=GEMMA_TRAIN_UNITS),
+                    cut=f"depth 28 -> {GEMMA_TRAIN_UNITS} units (28 need ~137 GB of Adam state)")
+    train_agree(torch, dev)
 
     agg_row = agg_timed[(SCENARIO["sats_per_plane"], n_main, torch.float32, "dirty")]
     flash_row = flash_timed["causal"]

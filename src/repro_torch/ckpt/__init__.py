@@ -1,0 +1,4 @@
+"""Checkpointing."""
+from repro_torch.ckpt.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]

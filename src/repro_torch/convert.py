@@ -3,8 +3,10 @@
 The reference package's parameters, turned into numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``), load into the port
 with ``params_from_numpy``; ``params_to_numpy`` goes the other way.
-Both keep the pytree structure and the reference layout (HWIO conv
-kernels, ``(in, out)`` dense weights).
+Both keep the pytree structure, NamedTuples and tuples included, so a
+whole ``TrainState`` with its optimizer state (adafactor's ``(row, col)``
+pairs too) carries across, and the reference layout (HWIO conv kernels,
+``(in, out)`` dense weights).
 
 bfloat16 has no numpy dtype of its own: arrays whose dtype is named
 ``bfloat16`` (the ``ml_dtypes`` type the reference hands out) are

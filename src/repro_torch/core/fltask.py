@@ -94,6 +94,13 @@ class FederatedTask:
           device: where parameters and data live; None means "cuda",
             which raises when no card is present.
         """
+        if optimizer.name == "adafactor":
+            # local_train updates every client's stacked leaves in one
+            # call, which only an elementwise optimizer gets right
+            raise ValueError(
+                "FederatedTask trains clients stacked on one axis and needs an "
+                "elementwise optimizer; adafactor reduces over whole leaves"
+            )
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
         self.clients = list(clients)

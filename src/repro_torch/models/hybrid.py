@@ -13,7 +13,10 @@ Layout for L mamba layers with interval g:
 The parameter pytree keeps the reference's two-level stacked layout
 (``mamba_full`` leaves lead with ``(n_full, group)``, ``mamba_rem`` with
 ``(rem,)``), so reference weights carry across with
-``convert.params_from_numpy`` unchanged.  The model runs on CUDA unless
+``convert.params_from_numpy`` unchanged.  With ``cfg.remat`` and grad
+mode on, each Mamba block is recomputed in the backward pass, as the
+reference checkpoints them (its shared block is not); the shared
+block's gradient sums over its uses.  The model runs on CUDA unless
 the caller asks for the CPU; ``init(rng)`` draws on the generator's
 device.  ``decode_step`` writes the SSM states and the keys and values
 into the cache's buffers in place.
@@ -114,10 +117,13 @@ class Zamba2Model:
         h = nn.apply_rmsnorm(sp["ln_ffn"], x)
         return x + apply_glu_ffn(sp["ffn"], h, self.cfg.activation), nc
 
+    def _mamba_block(self, x, bp):
+        return apply_mamba_block(bp, x, self.cfg, ssd_impl=self.ssd_impl)[0]
+
     def _mamba_stack(self, layers, x):
         for i in range(layers["A_log"].shape[0]):
-            x, _ = apply_mamba_block(tree_map(lambda p: p[i], layers), x, self.cfg,
-                                     ssd_impl=self.ssd_impl)
+            x = nn.remat(self.cfg.remat, self._mamba_block, x,
+                         tree_map(lambda p: p[i], layers))
         return x
 
     def forward(self, params, tokens, extra_embeds=None, last_only=False):

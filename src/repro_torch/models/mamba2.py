@@ -19,8 +19,9 @@ The recurrent (decode) path keeps O(1) state per layer: conv state
 
 ``Mamba2Model`` keeps the reference's stacked layout: every leaf of
 ``params["layers"]`` has a leading ``num_layers`` axis, so reference
-weights carry across with ``convert.params_from_numpy`` unchanged.  It
-runs on CUDA unless the caller asks for the CPU (``device="cpu"``);
+weights carry across with ``convert.params_from_numpy`` unchanged; with
+``cfg.remat`` and grad mode on, each block is recomputed in the backward
+pass.  It runs on CUDA unless the caller asks for the CPU (``device="cpu"``);
 ``init(rng)`` draws on the generator's device.  ``decode_step`` writes
 the SSM states into the cache's buffer in place.
 """
@@ -324,12 +325,14 @@ class Mamba2Model:
         x = nn.apply_embedding(params["embed"], tokens.to(self.device), self.dtype)
         layers = params["layers"]
         for i in range(self.cfg.num_layers):
-            x, _ = apply_mamba_block(tree_map(lambda p: p[i], layers), x, self.cfg,
-                                     ssd_impl=self.ssd_impl)
+            x = nn.remat(self.cfg.remat, self._block, x, tree_map(lambda p: p[i], layers))
         if last_only:
             x = x[:, -1:]
         x = nn.apply_rmsnorm(params["ln_final"], x)
         return self._lm_head(params, x), 0.0
+
+    def _block(self, x, bp):
+        return apply_mamba_block(bp, x, self.cfg, ssd_impl=self.ssd_impl)[0]
 
     def _lm_head(self, params, x):
         if self.cfg.tie_embeddings:

@@ -23,6 +23,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -187,6 +188,16 @@ def init_stacked(rng: torch.Generator, init_one, count: int, device: torch.devic
         tree_map(lambda dst, src: dst[i].copy_(src), stacked, one)
         del one         # before the next draw, so at most one is alive
     return stacked
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``; with ``enabled`` and grad mode on, its activations
+    are dropped after the forward pass and recomputed in the backward
+    pass (``jax.checkpoint``'s counterpart, for ``cfg.remat``).  Memory
+    changes, values do not; under ``no_grad`` this is a plain call."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def count_params(params: PyTree) -> int:

@@ -8,8 +8,10 @@ The parameter pytree keeps the reference's stacked layout: every leaf of
 ``params["layers"]`` has a leading ``num_units`` axis (a unit is one
 block, ``"block0"``), as the reference's ``jax.vmap`` init gives, so
 reference weights carry across with ``convert.params_from_numpy``
-unchanged.  The layers are applied in a Python loop over units;
-``scan_layers`` and ``remat`` change nothing in a forward pass.
+unchanged.  The layers are applied in a Python loop over units
+(``scan_layers`` changes nothing); with ``cfg.remat`` and grad mode on,
+each unit is recomputed in the backward pass (``nn.remat``), as the
+reference wraps each unit in ``jax.checkpoint``.
 
 Three entry points:
   * ``forward(params, tokens, last_only=...)`` — prefill full-sequence
@@ -140,9 +142,12 @@ class Transformer:
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         layers = params["layers"]
+
+        def unit(x, bp):
+            return self._apply_block(bp, x, positions, window=self.sliding_window)[0]
+
         for i in range(self.num_units):
-            x, _ = self._apply_block(tree_map(lambda p: p[i], layers["block0"]),
-                                     x, positions, window=self.sliding_window)
+            x = nn.remat(self.cfg.remat, unit, x, tree_map(lambda p: p[i], layers["block0"]))
         if last_only:
             x = x[:, -1:]
         x = nn.apply_rmsnorm(params["ln_final"], x)

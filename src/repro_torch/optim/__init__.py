@@ -1,6 +1,7 @@
 """Functional PyTorch optimizers over dict pytrees."""
 from repro_torch.optim.optimizers import (
     Optimizer,
+    adafactor,
     adam,
     apply_updates,
     clip_by_global_norm,
@@ -14,6 +15,7 @@ __all__ = [
     "sgd",
     "momentum",
     "adam",
+    "adafactor",
     "apply_updates",
     "clip_by_global_norm",
     "get_optimizer",

@@ -1,21 +1,54 @@
-"""Serving step builders for the LLM zoo.
+"""train_step / serve_step builders for the LLM zoo.
 
-The counterpart of the serving half of ``src/repro/train/steps.py``:
-``make_init_fn``, ``make_prefill_step``, ``make_serve_step`` and
-``make_greedy_decode`` (a Python loop in place of ``lax.scan``).  The
-steps run under ``torch.no_grad``.  ``TrainState``, ``lm_loss`` and
-``make_train_step`` wait for the training slice.
+The counterpart of ``src/repro/train/steps.py``:
+
+  * ``TrainState``, ``lm_loss`` and ``make_train_step(model, optimizer)``,
+    which returns ``(state, batch) -> (state, metrics)``: gradients by
+    ``torch.autograd.grad`` over the flattened parameter leaves, then
+    ``clip_by_global_norm``, ``optimizer.update`` and ``apply_updates``,
+    all out of place.
+  * ``make_init_fn``, ``make_prefill_step``, ``make_serve_step`` and
+    ``make_greedy_decode`` (a Python loop in place of ``lax.scan``),
+    which run under ``torch.no_grad``.
 
 Batches are dicts: ``{"tokens": (B, S) int}``.  Decode: token (B, 1) +
-cache + position.
+cache + position.  The vlm and audio families are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.optim.optimizers import apply_updates
+from repro_torch.tree import tree_flatten, tree_unflatten
+
 PyTree = Any
+
+
+class TrainState(NamedTuple):
+    params: PyTree
+    opt_state: PyTree
+    step: torch.Tensor
+
+
+def _not_ported(cfg) -> None:
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+            num_prefix: int = 0) -> torch.Tensor:
+    """Next-token cross-entropy.  logits may include ``num_prefix``
+    non-text (vision/audio) positions prepended; they are excluded."""
+    if num_prefix:
+        logits = logits[:, num_prefix:]
+    pred = logits[:, :-1]
+    tgt = tokens[:, 1:].to(device=logits.device, dtype=torch.long)
+    logp = torch.log_softmax(pred.float(), dim=-1)
+    ll = torch.gather(logp, -1, tgt[..., None])[..., 0]
+    return -torch.mean(ll)
 
 
 def make_init_fn(model) -> Callable:
@@ -25,6 +58,57 @@ def make_init_fn(model) -> Callable:
     return init
 
 
+def _loss_fn(model) -> Callable:
+    """(params, batch) -> (total loss, LM loss) of ``model``."""
+    _not_ported(model.cfg)
+
+    def loss_fn(params, batch):
+        logits, aux = model.forward(params, batch["tokens"])
+        loss = lm_loss(logits, batch["tokens"])
+        return loss + aux, loss
+
+    return loss_fn
+
+
+def _value_and_grad(loss_fn: Callable, params: PyTree, batch: Dict):
+    """((total, aux), grads) of ``loss_fn(params, batch)``, as
+    ``jax.value_and_grad(loss_fn, has_aux=True)`` gives them: gradients
+    of the first output by ``torch.autograd.grad`` over the flattened
+    parameter leaves, zero for a leaf the loss does not reach."""
+    leaves, treedef = tree_flatten(params)
+    with torch.enable_grad():
+        xs = [p.detach().requires_grad_(True) for p in leaves]
+        total, aux = loss_fn(tree_unflatten(treedef, xs), batch)
+        gs = torch.autograd.grad(total, xs, allow_unused=True)
+    grads = tree_unflatten(treedef, [torch.zeros_like(x) if g is None else g
+                                     for g, x in zip(gs, xs)])
+    return (total.detach(), aux.detach()), grads
+
+
+def make_train_step(
+    model,
+    optimizer: Optimizer,
+    grad_clip: Optional[float] = 1.0,
+) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
+    """One optimizer step on one model's state: (state, batch) ->
+    (new state, {"loss", "total_loss"}).  The input state is left as it
+    is; every leaf of the new one is a new tensor."""
+    loss_fn = _loss_fn(model)
+
+    def train_step(state: TrainState, batch: Dict):
+        (total, ce), grads = _value_and_grad(loss_fn, state.params, batch)
+        with torch.no_grad():
+            if grad_clip is not None:
+                grads = clip_by_global_norm(grads, grad_clip)
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+            del grads
+            params = apply_updates(state.params, updates)
+        new_state = TrainState(params=params, opt_state=opt_state, step=state.step + 1)
+        return new_state, {"loss": ce, "total_loss": total}
+
+    return train_step
+
+
 def make_prefill_step(model) -> Callable:
     """Inference prefill: full-sequence forward, logits for the last
     position only (never materializes the (B, S, V) tensor)."""
@@ -32,8 +116,7 @@ def make_prefill_step(model) -> Callable:
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        if cfg.family in ("audio", "vlm"):
-            raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        _not_ported(cfg)
         logits, _ = model.forward(params, batch["tokens"], last_only=True)
         return logits[:, -1, :]
 

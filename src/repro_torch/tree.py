@@ -2,13 +2,14 @@
 
 Parameters in the port stay nested dicts and lists of tensors, in the
 reference's layout.  Flattening follows ``jax.tree_util`` order — dict
-keys sorted, lists and tuples in order — so the flattened ``(K, N)``
-aggregation stream matches the reference element for element.  Every
-object that is not a dict, list or tuple is a leaf.
+keys sorted, lists and tuples in order, NamedTuples in field order —
+so the flattened ``(K, N)`` aggregation stream and the checkpoint's leaf
+indices match the reference element for element.  Every object that is
+not a dict, list or tuple is a leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, NamedTuple, Tuple
 
 import torch
 
@@ -77,6 +78,66 @@ def tree_unflatten(treedef: TreeDef, leaves: List[Any]) -> PyTree:
         return _rebuild(node, [build(n) for n in node])
 
     return build(treedef.skeleton)
+
+
+class DictKey(NamedTuple):
+    key: Any
+
+
+class SequenceKey(NamedTuple):
+    idx: int
+
+
+class GetAttrKey(NamedTuple):
+    name: str
+
+
+def _flatten_with_path(tree: PyTree, path: Tuple, out: List[Tuple[Tuple, Any]]) -> None:
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _flatten_with_path(tree[k], path + (DictKey(k),), out)
+    elif hasattr(tree, "_fields") and isinstance(tree, tuple):
+        for name, child in zip(tree._fields, tree):
+            _flatten_with_path(child, path + (GetAttrKey(name),), out)
+    elif isinstance(tree, (list, tuple)):
+        for i, child in enumerate(tree):
+            _flatten_with_path(child, path + (SequenceKey(i),), out)
+    else:
+        out.append((path, tree))
+
+
+def tree_flatten_with_path(tree: PyTree) -> Tuple[List[Tuple[Tuple, Any]], TreeDef]:
+    """``[(key path, leaf), ...]`` in ``tree_flatten`` order, and the
+    treedef.  A key path holds one ``DictKey(key)``, ``SequenceKey(idx)``
+    or ``GetAttrKey(name)`` (a NamedTuple field) per level, with the
+    attributes ``jax.tree_util.tree_flatten_with_path`` gives."""
+    out: List[Tuple[Tuple, Any]] = []
+    _flatten_with_path(tree, (), out)
+    return out, tree_flatten(tree)[1]
+
+
+def flatten_up_to(treedef: TreeDef, tree: PyTree) -> List[Any]:
+    """The subtrees of ``tree`` found where ``treedef`` has its leaves,
+    in order, as ``jax``'s ``treedef.flatten_up_to``: ``tree`` must have
+    ``treedef``'s containers down to them."""
+    out: List[Any] = []
+
+    def walk(node: Any, sub: Any) -> None:
+        if node is _LEAF:
+            out.append(sub)
+        elif isinstance(node, dict):
+            if not isinstance(sub, dict) or sorted(sub) != list(node):
+                raise ValueError(f"tree does not match {treedef}: {sub!r}")
+            for k, child in node.items():
+                walk(child, sub[k])
+        else:
+            if type(sub) is not type(node) or len(sub) != len(node):
+                raise ValueError(f"tree does not match {treedef}: {sub!r}")
+            for child, s in zip(node, sub):
+                walk(child, s)
+
+    walk(treedef.skeleton, tree)
+    return out
 
 
 def tree_leaves(tree: PyTree) -> List[Any]:

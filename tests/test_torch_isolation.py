@@ -7,7 +7,9 @@ package, and its copied numpy modules stay verbatim copies.
     and one traced CPU FedAvgStar round, and reports on its trace;
     another imports the serving slice (configs, transformer, serving
     steps) and serves a smoke gemma on the CPU; a third prefills and
-    decodes smoke mamba2 and zamba2 models on the CPU.
+    decodes smoke mamba2 and zamba2 models on the CPU; a fourth runs the
+    training driver (``python -m repro_torch.launch.train``) in FedLEO
+    mode on the CPU with a checkpoint.
   * An AST scan of every module of the port and of ``chip_smoke.py``
     finds no import of jax or of the reference package.
   * Every copied module equals its reference file with the imports
@@ -197,3 +199,30 @@ def test_ssm_serving_runs_with_jax_and_reference_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ISOLATED-SSM-OK" in proc.stdout
+
+
+_ISOLATED_TRAIN = _ISOLATED_RUN[:_ISOLATED_RUN.index("import repro_torch")] + textwrap.dedent("""
+    import os, runpy, tempfile
+    from repro_torch.ckpt import latest_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sys.argv = ["train", "--arch", "mamba2-780m", "--smoke", "--fedleo", "--device", "cpu",
+                    "--steps", "4", "--tau", "2", "--batch", "2", "--seq", "32",
+                    "--ckpt-dir", tmp, "--ckpt-every", "2"]
+        runpy.run_module("repro_torch.launch.train", run_name="__main__")
+        assert latest_step(tmp) == 4, os.listdir(tmp)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not loaded, loaded
+    print("ISOLATED-TRAIN-OK")
+""")
+
+
+def test_training_driver_runs_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _ISOLATED_TRAIN], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ISOLATED-TRAIN-OK" in proc.stdout
+    assert proc.stdout.count("[aggregated]") == 2

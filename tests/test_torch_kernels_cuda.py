@@ -801,3 +801,96 @@ def test_ssm_prefill_on_the_card_launches_ssd_per_layer(cuda_device, arch):
     assert ssd_scan.launches == ssd_before + cfg.num_layers
     assert flash_attention.launches == flash_before + getattr(card, "n_attn_uses", 0)
     assert float((got.cpu() - want).abs().max()) <= 2e-3
+
+
+# --- training: the FedLEO orbit replicas on the card ---------------------------------------
+def _smoke_fedleo(device, opt_name, r=2):
+    """A smoke mamba2 FedLEO local step (R replicas, tau 1) and its
+    aggregate through the kernel route on ``device``, from the same
+    weights and tokens: (local step's losses, state after the step,
+    aggregated state, K1 launches of the aggregate)."""
+    from repro_torch.configs import build_model, get_smoke_config
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train.fedleo_step import (make_fedleo_aggregate, make_fedleo_local_step,
+                                               replicate_for_orbits)
+    from repro_torch.train.steps import TrainState
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke_config("mamba2-780m")
+    model = build_model(cfg, dtype=torch.float32, device=device)
+    opt = get_optimizer(opt_name, 0.05 if opt_name == "sgd" else cfg.learning_rate)
+    params = tree_map(lambda p: p.to(device), model.init(torch.Generator().manual_seed(0)))
+    state = replicate_for_orbits(
+        TrainState(params, opt.init(params), torch.zeros((), dtype=torch.int32, device=device)), r)
+    tokens = torch.randint(0, cfg.vocab_size, (r, 1, 2, 32),
+                           generator=torch.Generator().manual_seed(1)).to(device)
+    stepped, metrics = make_fedleo_local_step(model, opt)(state, {"tokens": tokens})
+    before = aggregate_flat.launches
+    agg = make_fedleo_aggregate(use_kernel=True)(stepped, torch.tensor([1.0, 3.0]))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return metrics["loss"].cpu(), stepped, agg, aggregate_flat.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt_name,launches", [("adam", 2), ("adafactor", 2), ("sgd", 1)])
+def test_fedleo_step_and_aggregate_on_the_card(cuda_device, opt_name, launches):
+    """One K1 launch for each tree with a replicated leaf (SGD's state
+    has none); the aggregate equals the plain fmaf chain on the card's
+    own state, leaf by leaf (Adam's int32 step through float32 and back);
+    the local step's losses and first moments agree with the CPU's within
+    1e-4 of their largest value (float32, TF32 off)."""
+    from repro_torch.tree import tree_leaves
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        loss, stepped, agg, n = _smoke_fedleo(cuda_device, opt_name)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert n == launches
+    w = torch.tensor([0.25, 0.75], device=cuda_device)
+    for x, m in zip(tree_leaves(stepped), tree_leaves(agg)):
+        if x.ndim == 0 or x.shape[0] != 2:
+            continue
+        want = aggregate_flat_ref(x.reshape(2, -1).float(), w).to(x.dtype).reshape(x.shape[1:])
+        assert torch.equal(m[0], want) and torch.equal(m[1], want)
+    loss_cpu, stepped_cpu, _, n_cpu = _smoke_fedleo(torch.device("cpu"), opt_name)
+    assert n_cpu == 0
+    assert float((loss - loss_cpu).abs().max()) <= 1e-4 * float(loss_cpu.abs().max())
+    card, cpu = tree_leaves(stepped.opt_state), tree_leaves(stepped_cpu.opt_state)
+    for a, b in zip(card, cpu):
+        if b.is_floating_point():
+            assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-12
+        else:
+            assert torch.equal(a.cpu(), b)
+    if opt_name == "sgd":
+        for a, b in zip(tree_leaves(stepped.params), tree_leaves(stepped_cpu.params)):
+            assert float((a.cpu() - b).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_refuse_autograd_on_the_card(cuda_device):
+    """Under grad mode, an input that requires grad makes the flash and
+    SSD dispatch raise before any launch; under no_grad they launch."""
+    from repro_torch.kernels import flash_ops, ssd_ops
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.ssd import ssd_scan
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((1, 64, 2, 64), generator=gen, device=cuda_device) for _ in range(3))
+    x = torch.randn((1, 64, 2, 64), generator=gen, device=cuda_device)
+    dt = torch.rand((1, 64, 2), generator=gen, device=cuda_device) + 0.1
+    A = -torch.rand((2,), generator=gen, device=cuda_device)
+    bc = torch.randn((1, 64, 1, 64), generator=gen, device=cuda_device)
+    before = (flash_attention.launches, ssd_scan.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_ops.flash_attention(q.requires_grad_(True), k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_ops.ssd(x, dt.requires_grad_(True), A, bc, bc, chunk=32)
+    assert (flash_attention.launches, ssd_scan.launches) == before
+    with torch.no_grad():
+        flash_ops.flash_attention(q, k, v)
+        ssd_ops.ssd(x, dt, A, bc, bc, chunk=32)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, ssd_scan.launches) == (before[0] + 1, before[1] + 1)
