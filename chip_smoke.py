@@ -31,7 +31,9 @@ script exits non-zero without a result line:
                    ``aggregate_flat`` against one launch over the leaves,
                    with wall time per call and peak device memory) on
                    the CNN's tree and mamba2-780m's; flash (dirty) at
-                   gemma-7b's and zamba2-1.2b's prefill shapes, the SSD
+                   gemma-7b's, zamba2-1.2b's, kimi-k2's (head_dim 112)
+                   and seamless-m4t's encoder's (not causal) prefill
+                   shapes, the SSD
                    scan (dirty) at mamba2-780m's and zamba2-1.2b's and
                    at mamba2's with one prompt.
   5. main        — the FedLEO path: rounds on the quickstart scenario
@@ -82,7 +84,32 @@ script exits non-zero without a result line:
  15. ssm_agree   — SSM prefill (kernel) against teacher-forced decode
                    (recurrence, no kernel) at full width; smoke configs
                    on the card against the CPU at a ragged S.
- 16. train       — the training path: FedLEO orbit replicas of
+ 16. moe_serve   — the MoE serving path in bfloat16 at full width, weights
+                   drawn in bfloat16 leaf by leaf: llama4-maverick cut to
+                   1 of 24 units (a dense and a MoE block, 37.1 GB) and
+                   kimi-k2 to 1 of 61 layers (38.8 GB), one after the
+                   other; prefill of 4 x 2048 tokens through the flash
+                   kernel (2 and 1 launches a call; kimi's head_dim is
+                   112), the share of (token, choice) pairs dropped, a
+                   profile splitting the MoE layers' kernels into expert
+                   products and dispatch/combine; greedy decoding (64
+                   prompt tokens, 32 generated), no flash launch.
+ 17. vlm_serve   — internvl2-26b whole (48 layers, 39.7 GB): prefill of
+                   256 patch embeddings + 2048 tokens, 4 prompts (48
+                   launches a call), then text-only greedy decoding.
+ 18. audio_serve — seamless-m4t-large-v2 whole (24 + 24 layers): prefill
+                   of 1024 frames + 2048 tokens, 4 prompts (24 non-causal
+                   and 24 causal launches a call); ``init_cache`` encodes
+                   once (24); greedy decoding launches none.
+                   Phases 16-18 reset the flash count just before they
+                   run and read it just after; each prefill profile must
+                   show the tensor-core flash kernel alone.
+ 19. zoo_agree   — prefill against teacher-forced decode at full width,
+                   2 layers, float32 (internvl2's text path, seamless);
+                   the smoke configs of the four on the card against the
+                   CPU: forward and decode logits, a train step with
+                   adam, adafactor and sgd.
+ 20. train       — the training path: FedLEO orbit replicas of
                    mamba2-780m at full width (remat, Adam), 2 replicas of
                    4 x 2048 tokens, 4 local steps, an aggregation through
                    the aggregation kernel every 2 (2 launches each:
@@ -90,10 +117,10 @@ script exits non-zero without a result line:
                    memory per step; replicas apart before each
                    aggregation and equal after it; no flash or SSD launch.
                    Launch counts reset just before and read just after.
- 17. train_hybrid — zamba2-1.2b at full width, 2 plain train steps of
+ 21. train_hybrid — zamba2-1.2b at full width, 2 plain train steps of
                    2 x 2048 tokens (attention ``xla``).
- 18. train_dense — gemma-7b at full width, depth cut to 2 units, the same.
- 19. train_agree — smoke configs of the three families, card against CPU:
+ 22. train_dense — gemma-7b at full width, depth cut to 2 units, the same.
+ 23. train_agree — smoke configs of the three families, card against CPU:
                    a FedLEO local step and its aggregate with Adam, SGD
                    and adafactor; then ``python -m repro_torch.launch.train
                    --smoke --fedleo`` on the card, its checkpoint restored
@@ -140,9 +167,12 @@ SPIN_CYCLES = 2_000_000            # about 1 ms at the H100's clocks
 SIM_EPOCHS = 8
 
 # flash attention: (B, S, H, G, D) checked on the card — gemma-7b's heads,
-# phi3-medium's GQA heads, MQA, and two ragged S — in five modes
+# phi3-medium's GQA heads, MQA, two ragged S, kimi-k2's heads (D = 112,
+# two 64-wide boxes of which the second is cut at D), internvl2-26b's (GQA
+# 6:1) and llama4-maverick's (GQA 5:1, ragged S) — in five modes
 FLASH_CHECK_SHAPES = [(1, 2048, 16, 16, 256), (1, 1024, 40, 10, 128),
-                      (2, 256, 4, 1, 32), (1, 77, 4, 2, 64), (1, 2000, 16, 16, 256)]
+                      (2, 256, 4, 1, 32), (1, 77, 4, 2, 64), (1, 2000, 16, 16, 256),
+                      (1, 256, 64, 8, 112), (1, 256, 48, 8, 128), (1, 333, 40, 8, 128)]
 FLASH_MODES = {"causal": (True, None, None), "full": (False, None, None),
                "window512": (True, 512, None), "softcap20": (True, None, 20.0),
                "full+window512": (False, 512, None)}
@@ -158,11 +188,20 @@ FLASH_F32_REL = 1e-5
 BF16_HALF_ULP = 2.0 ** -8
 # the serving path: gemma-7b prefill of 4 prompts of 2048 tokens
 SERVE_BATCH, SERVE_SEQ = 4, 2048
-# flash timed at the prefill shapes (B, S, H, G, D): gemma-7b, full and
-# window 512, and zamba2-1.2b's shared attention
+# flash timed (and held against its plain version) at every prefill shape
+# of the serving paths (B, S, H, G, D): gemma-7b, full and window 512,
+# zamba2-1.2b's shared attention, llama4-maverick's (GQA 5:1), kimi-k2's
+# (D = 112, GQA 8:1), internvl2-26b's over 256 patches and 2048 tokens (GQA
+# 6:1), and seamless-m4t's encoder over its 1024 frames (not causal) and
+# its decoder
 FLASH_TIME_CASES = {"causal": ((SERVE_BATCH, SERVE_SEQ, 16, 16, 256), True, None),
                     "window512": ((SERVE_BATCH, SERVE_SEQ, 16, 16, 256), True, 512),
-                    "zamba2_causal": ((SERVE_BATCH, SERVE_SEQ, 32, 32, 64), True, None)}
+                    "zamba2_causal": ((SERVE_BATCH, SERVE_SEQ, 32, 32, 64), True, None),
+                    "llama4_causal": ((SERVE_BATCH, SERVE_SEQ, 40, 8, 128), True, None),
+                    "kimi_causal": ((SERVE_BATCH, SERVE_SEQ, 64, 8, 112), True, None),
+                    "internvl2_causal": ((SERVE_BATCH, SERVE_SEQ + 256, 48, 8, 128), True, None),
+                    "seamless_encoder": ((SERVE_BATCH, 1024, 16, 16, 64), False, None),
+                    "seamless_decoder": ((SERVE_BATCH, SERVE_SEQ, 16, 16, 64), True, None)}
 # the library's attention kernels by name (SDPA's flash, memory-efficient
 # and cuDNN kernels), which the port must never launch
 LIBRARY_ATTENTION = ("pytorch_flash", "fmha", "attentionkernel", "sdpa", "flash_attn")
@@ -216,6 +255,24 @@ PLAIN_TRAIN_BATCH, PLAIN_TRAIN_STEPS, GEMMA_TRAIN_UNITS = 2, 2, 2
 # launches per aggregation (one per tree with a replicated leaf)
 TRAIN_AGREE_ARCHS = ("gemma-7b", "mamba2-780m", "zamba2-1.2b")
 TRAIN_AGREE_LAUNCHES = {"adam": 2, "adafactor": 2, "sgd": 1}
+# the zoo's serving paths: llama4-maverick cut to 1 of its 24 units (a
+# dense block and a MoE block) and kimi-k2 to 1 of its 61 layers, the only
+# cut (one MoE layer's experts are 32.2 GB and 33.8 GB in bfloat16);
+# internvl2-26b and seamless-m4t-large-v2 whole
+MOE_SERVE = {"llama4-maverick-400b-a17b": 1, "kimi-k2-1t-a32b": 1}
+VLM_ARCH, AUDIO_ARCH = "internvl2-26b", "seamless-m4t-large-v2"
+ZOO_ARCHS = (*MOE_SERVE, VLM_ARCH, AUDIO_ARCH)
+# prefill (the flash kernel) against decode (the cache path) on the zoo's
+# paths, as a share of the largest logit.  In float32 the parity tests'
+# 1e-4 (summation order only).  In bfloat16 the two paths round K/V,
+# scores and the residual stream apart in every layer, and the gap grows
+# as a random walk: 2e-2 x sqrt(layers), the tests' 3e-2 at their 2
+# layers.  On the card each bfloat16 path lies as far from the float32
+# model as from the other, and the gap reads ~1e-2 x sqrt(layers)
+# (tools/bf16_gap.py: gemma-7b, internvl2-26b at 8 and 48 layers,
+# seamless-m4t-large-v2).
+F32_LOGIT_REL, BF16_LOGIT_REL_PER_SQRT_LAYER = 1e-4, 2e-2
+GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
 
 
 def ptxas_summary(log: str) -> dict:
@@ -398,6 +455,7 @@ def profile_round(torch, strategy, t: float) -> dict:
     kernels = device_kernels(stats)
     busy_ms = sum(ms for _, ms, _ in kernels)
     agg_ops, agg_kernels = range_contents(prof, "aggregate")
+    agg_kernels = [name for name, _ in agg_kernels]
     cats = ([n for n in agg_ops if n in ("aten::cat", "aten::concat", "aten::concatenate")]
             + [n for n in agg_kernels if "CatArray" in n])
     check(not cats, f"the aggregation ranges concatenated: {cats}")
@@ -415,14 +473,14 @@ def profile_round(torch, strategy, t: float) -> dict:
 
 
 def range_contents(prof, label: str):
-    """(CPU op names, device kernel names) inside every host range
-    ``label`` of a profile, the range's own kernels included."""
+    """(CPU op names, (device kernel name, ms) pairs) inside every host
+    range ``label`` of a profile, the range's own kernels included."""
     from torch.autograd import DeviceType
 
     ops, kernels = [], []
 
     def walk(event):
-        kernels.extend(k.name for k in event.kernels)
+        kernels.extend((k.name, k.duration / 1e3) for k in event.kernels)
         for child in event.cpu_children:
             ops.append(child.name)
             walk(child)
@@ -1190,7 +1248,8 @@ def time_flash(torch, dev, gen, flush, smi):
         err, scale, ok = flash_error(torch, q, k, v, causal, window, None)
         check(ok, f"flash {case} at the prefill shape: {err} (largest output {scale})")
         if window is None:
-            lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                            enable_gqa=g != h)
         else:
             pos = torch.arange(s, device=dev)
             band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
@@ -1210,12 +1269,21 @@ def time_flash(torch, dev, gen, flush, smi):
     return rows
 
 
-def profile_call(torch, fn):
+def profile_call(torch, fn, moe: bool = False):
     """One call of ``fn`` under torch.profiler: its wall time, the
     device's busy share, and device time split into the flash kernels
     and the SSD kernels (tensor-core and CUDA-core apart), the library's
-    attention kernels, matrix products (cuBLAS) and the rest."""
-    from torch.profiler import ProfilerActivity, profile
+    attention kernels, matrix products (cuBLAS) and the rest.  With
+    ``moe``, each MoE layer runs in a profiler range and so do its
+    routing (router product, softmax, top-k, sort, slots), dispatch (the
+    scatter into the expert buffers) and combine (the weighted gather
+    back); the experts are the rest of the layer: their products
+    (``moe_expert_gemm_ms``, the shared expert's too) and their
+    activations (``moe_expert_other_ms``)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
 
     from repro_torch.kernels.flash import KERNELS
     from repro_torch.kernels.ssd import KERNELS as SSD_KERNELS
@@ -1223,12 +1291,29 @@ def profile_call(torch, fn):
     tc_name, core_name = KERNELS[torch.bfloat16] + "<", KERNELS[torch.float32] + "<"
     ssd_tc_name = SSD_KERNELS[torch.bfloat16] + "<"
     ssd_core_name = SSD_KERNELS[torch.float32] + "<"
+    ranged = {(transformer, "apply_moe"): "moe", (moe_mod, "route"): "moe_route",
+              (moe_mod, "dispatch"): "moe_dispatch", (moe_mod, "combine"): "moe_combine"}
+    real = {key: getattr(*key) for key in ranged}
+
+    def in_range(fn_, label):
+        def wrapped(*args, **kwargs):
+            with record_function(label):
+                return fn_(*args, **kwargs)
+        return wrapped
+
+    if moe:
+        for (mod, name), label in ranged.items():
+            setattr(mod, name, in_range(real[(mod, name)], label))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        w0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - w0)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - w0)
+    finally:
+        for (mod, name), fn_ in real.items():
+            setattr(mod, name, fn_)
     kernels = device_kernels(prof.key_averages())
     if not kernels:
         return dict(wall_ms=wall_ms, device_busy_ms="not measured")
@@ -1242,9 +1327,25 @@ def profile_call(torch, fn):
     ssd_tc = sum(ms for name, ms, _ in kernels if ssd_tc_name in name)
     ssd_core = sum(ms for name, ms, _ in kernels if ssd_core_name in name)
     ssd = ssd_tc + ssd_core
-    gemm = sum(ms for name, ms, _ in kernels
-               if any(t in name.lower() for t in ("gemm", "gemv", "xmma", "cutlass", "nvjet")))
-    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_busy_share=busy / wall_ms,
+    gemm = sum(ms for name, ms, _ in kernels if any(t in name.lower() for t in GEMM_NAMES))
+    split, routed = {}, 0.0
+    if moe:
+        def times(label):
+            ks = range_contents(prof, label)[1]
+            return (sum(ms for _, ms in ks),
+                    sum(ms for n, ms in ks if any(t in n.lower() for t in GEMM_NAMES)))
+
+        (moe_ms, moe_gemm), (route, route_gemm) = times("moe"), times("moe_route")
+        (dispatch, _), (combine, _) = times("moe_dispatch"), times("moe_combine")
+        experts = moe_ms - route - dispatch - combine
+        routed = route - route_gemm + dispatch + combine   # MoE work outside any product
+        split = (dict(moe_ms=moe_ms, moe_route_ms=route, moe_router_gemm_ms=route_gemm,
+                      moe_dispatch_ms=dispatch, moe_combine_ms=combine,
+                      moe_dispatch_combine_share=(dispatch + combine) / busy,
+                      moe_expert_gemm_ms=moe_gemm - route_gemm,
+                      moe_expert_other_ms=experts - (moe_gemm - route_gemm))
+                 if moe_ms else dict(moe_ms="not measured"))
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_busy_share=busy / wall_ms, **split,
                 launches=sum(c for _, _, c in kernels),
                 flash_ms=flash, flash_share=flash / busy, flash_tc_ms=flash_tc,
                 flash_tc_launches=sum(c for n, _, c in ours if tc_name in n),
@@ -1255,7 +1356,8 @@ def profile_call(torch, fn):
                 ssd_tc_launches=sum(c for n, _, c in kernels if ssd_tc_name in n),
                 ssd_core_ms=ssd_core,
                 ssd_core_launches=sum(c for n, _, c in kernels if ssd_core_name in n),
-                gemm_ms=gemm, gemm_share=gemm / busy, other_ms=busy - flash - ssd - gemm,
+                gemm_ms=gemm, gemm_share=gemm / busy,
+                other_ms=busy - flash - ssd - gemm - routed,
                 top_kernels=[{"name": n[:100], "ms": ms, "count": c} for n, ms, c in kernels[:10]])
 
 
@@ -1288,7 +1390,7 @@ def serve(torch, dev, smi):
     Returns the flash launches of the phase."""
     from repro_torch.configs import build_model, get_config
     from repro_torch.kernels.flash import flash_attention
-    from repro_torch.models.nn import count_params, tree_cast
+    from repro_torch.models.nn import count_params
     from repro_torch.train.steps import make_prefill_step, make_serve_step
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -1298,11 +1400,8 @@ def serve(torch, dev, smi):
     model = build_model(cfg, attn_impl="pallas")
     check(model.device.type == "cuda" and model.dtype == torch.bfloat16,
           f"model on {model.device} in {model.dtype}")
-    params32 = model.init(gen)
-    params = tree_cast(params32, torch.bfloat16)
-    del params32
+    params = model.init(gen, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     n_params = count_params(params)
     check(n_params == GEMMA_PARAMS, f"gemma-7b has {n_params} parameters")
     check(all(l.is_cuda and l.dtype == torch.bfloat16 for l in tree_leaves(params)),
@@ -1319,14 +1418,7 @@ def serve(torch, dev, smi):
         for s in (SERVE_SEQ, 2000):
             tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, s), generator=gen,
                                    device=dev)
-            logits = step(params, {"tokens": tokens})           # warm-up
-            torch.cuda.synchronize()
-            times = []
-            for _ in range(3):
-                w0 = time.perf_counter()
-                logits = step(params, {"tokens": tokens})
-                torch.cuda.synchronize()
-                times.append(1e3 * (time.perf_counter() - w0))
+            logits, times = timed_prefill(torch, step, params, {"tokens": tokens})
             prefill_calls += 4
             check(logits.shape == (SERVE_BATCH, cfg.vocab_size), f"logits {tuple(logits.shape)}")
             check(bool(torch.isfinite(logits.float()).all()), "non-finite prefill logits")
@@ -1341,42 +1433,24 @@ def serve(torch, dev, smi):
 
     for window in (None, 32):
         model_w = build_model(cfg, attn_impl="pallas", sliding_window=window)
-        serve_step = make_serve_step(model_w)
         prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, DECODE_PROMPT),
                                generator=gen, device=dev)
         max_len = DECODE_PROMPT + DECODE_GEN
         cache = model_w.init_cache(SERVE_BATCH, max_len)
-        cache_mb = sum(l.numel() * l.element_size() for l in tree_leaves(cache)) / 1e6
-        torch.cuda.synchronize()
-        w0 = time.perf_counter()
-        for t in range(DECODE_PROMPT):                     # teacher-forced prompt
-            logits, cache = serve_step(params, prompt[:, t:t + 1], cache, t)
-        torch.cuda.synchronize()
-        prompt_s = time.perf_counter() - w0
-        w0 = time.perf_counter()
-        out = []
-        tok = torch.argmax(logits, dim=-1, keepdim=True)
-        for t in range(DECODE_PROMPT, max_len):            # greedy generation
-            out.append(tok)
-            logits, cache = serve_step(params, tok, cache, t)
-            tok = torch.argmax(logits, dim=-1, keepdim=True)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - w0
-        toks = torch.cat(out, dim=1)
+        size_mb = cache_mb(cache)
+        logits, cache, toks, prompt_s, gen_s, _ = serve_decode(torch, model_w, params, cache,
+                                                               prompt, DECODE_GEN)
         # one more step, profiled, against a copy of the cache
+        tok = torch.argmax(logits, dim=-1, keepdim=True)
         spare = tree_map(torch.clone, cache)
-        prof = profile_call(torch, lambda: serve_step(params, tok, spare, max_len - 1))
+        prof = profile_call(torch, lambda: make_serve_step(model_w)(params, tok, spare,
+                                                                    max_len - 1))
         del spare
-        finite = bool(torch.isfinite(logits.float()).all())
-        in_range = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
         emit("decode", window=window, batch=SERVE_BATCH, prompt=DECODE_PROMPT, generated=DECODE_GEN,
-             cache_MB=cache_mb, cache_slots=int(cache["block0"].k.shape[2]),
+             cache_MB=size_mb, cache_slots=int(cache["block0"].k.shape[2]),
              prompt_tokens_per_s=SERVE_BATCH * DECODE_PROMPT / prompt_s,
              tokens_per_s=SERVE_BATCH * DECODE_GEN / gen_s, ms_per_step=1e3 * gen_s / DECODE_GEN,
-             finite=finite, tokens_in_range=in_range, sample=toks[0, :12].tolist(),
-             nvidia_smi=smi, profile=prof)
-        check(finite, "non-finite decode logits")
-        check(in_range, "generated token ids out of range")
+             sample=toks[0, :12].tolist(), nvidia_smi=smi, profile=prof)
         check(cache["block0"].index.tolist() == [max_len] * cfg.num_layers, "cache index")
 
     launches = flash_attention.launches
@@ -1586,14 +1660,7 @@ def ssm_serve(torch, dev, smi):
         calls = 0
         for s in (SERVE_SEQ, 2000):
             tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, s), generator=gen, device=dev)
-            logits = step(params, {"tokens": tokens})           # warm-up
-            torch.cuda.synchronize()
-            times = []
-            for _ in range(3):
-                w0 = time.perf_counter()
-                logits = step(params, {"tokens": tokens})
-                torch.cuda.synchronize()
-                times.append(1e3 * (time.perf_counter() - w0))
+            logits, times = timed_prefill(torch, step, params, {"tokens": tokens})
             calls += 4
             check(logits.shape == (SERVE_BATCH, cfg.vocab_size), f"logits {tuple(logits.shape)}")
             check(bool(torch.isfinite(logits.float()).all()), "non-finite prefill logits")
@@ -1618,35 +1685,17 @@ def ssm_serve(torch, dev, smi):
         max_len = DECODE_PROMPT + DECODE_GEN
         cache = model.init_cache(SERVE_BATCH, max_len)
         size_mb = cache_mb(cache)
-        torch.cuda.synchronize()
-        w0 = time.perf_counter()
-        for t in range(DECODE_PROMPT):                     # teacher-forced prompt
-            logits, cache = serve_step(params, prompt[:, t:t + 1], cache, t)
-        torch.cuda.synchronize()
-        prompt_s = time.perf_counter() - w0
-        w0 = time.perf_counter()
-        out = []
+        logits, cache, toks, prompt_s, gen_s, _ = serve_decode(torch, model, params, cache,
+                                                               prompt, DECODE_GEN)
         tok = torch.argmax(logits, dim=-1, keepdim=True)
-        for t in range(DECODE_PROMPT, max_len):            # greedy generation
-            out.append(tok)
-            logits, cache = serve_step(params, tok, cache, t)
-            tok = torch.argmax(logits, dim=-1, keepdim=True)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - w0
-        toks = torch.cat(out, dim=1)
         spare = tree_map(torch.clone, cache)
         prof = profile_call(torch, lambda: serve_step(params, tok, spare, max_len - 1))
         del spare
-        finite = bool(torch.isfinite(logits.float()).all())
-        in_range = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
         emit("ssm_decode", arch=arch, batch=SERVE_BATCH, prompt=DECODE_PROMPT,
              generated=DECODE_GEN, cache_MB=size_mb,
              prompt_tokens_per_s=SERVE_BATCH * DECODE_PROMPT / prompt_s,
              tokens_per_s=SERVE_BATCH * DECODE_GEN / gen_s, ms_per_step=1e3 * gen_s / DECODE_GEN,
-             finite=finite, tokens_in_range=in_range, sample=toks[0, :12].tolist(),
-             nvidia_smi=smi, profile=prof)
-        check(finite, "non-finite decode logits")
-        check(in_range, "generated token ids out of range")
+             sample=toks[0, :12].tolist(), nvidia_smi=smi, profile=prof)
         check(ssd_scan.launches == expect_ssd and flash_attention.launches == expect_flash,
               f"{arch} decode launched a kernel")
         del params, cache, model, step, serve_step
@@ -1702,6 +1751,413 @@ def ssm_agree(torch, dev):
         emit("ssm_agree", what=f"{arch} smoke config, f32, S=100: card vs CPU",
              max_abs_err=err, limit=2e-3, ok=err <= 2e-3)
         check(err <= 2e-3, f"{arch} smoke prefill: card and CPU differ by {err}")
+
+
+# --- the zoo's serving paths: MoE, the VLM stub, the encoder-decoder ------------------
+def zoo_param_count(cfg) -> int:
+    """Parameters of a transformer-family config, counted from its shapes
+    alone: attention, norms, GLU FFN or MoE (router, experts, shared
+    experts) per layer, embedding, final norm and LM head; for the
+    encoder-decoder, encoder blocks and norm, decoder blocks with
+    cross-attention and a third norm."""
+    d, hd, vocab = cfg.d_model, cfg.resolved_head_dim, cfg.vocab_size
+    attn = 2 * d * hd * (cfg.num_heads + cfg.num_kv_heads)
+    ffn = 3 * d * cfg.d_ff
+
+    def ffn_of(i):
+        m = cfg.moe
+        if m is None or i % cfg.moe_every != cfg.moe_every - 1:
+            return ffn
+        return (d * m.num_experts + 3 * m.num_experts * d * m.d_ff_expert
+                + 3 * d * m.d_ff_expert * m.num_shared_experts)
+
+    ends = vocab * d + d + (d * vocab if cfg.encoder is not None or not cfg.tie_embeddings else 0)
+    if cfg.encoder is not None:
+        enc = cfg.encoder.num_layers * (attn + 2 * d + ffn) + d
+        return enc + cfg.num_layers * (2 * attn + 3 * d + ffn) + ends
+    return sum(attn + 2 * d + ffn_of(i) for i in range(cfg.num_layers)) + ends
+
+
+def zoo_init(torch, dev, cfg, phase: str, cut=None):
+    """The model through ``build_model`` (flash attention) and random
+    bfloat16 weights drawn on the card, each leaf cast as drawn (no
+    float32 copy of the tree); checks the count against the config's
+    shapes and prints the setup line."""
+    from repro_torch.configs import build_model
+    from repro_torch.models.nn import count_params
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, attn_impl="pallas")
+    check(model.device.type == "cuda" and model.dtype == torch.bfloat16,
+          f"{cfg.name} on {model.device} in {model.dtype}")
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    check(n_params == zoo_param_count(cfg), f"{cfg.name} has {n_params} parameters, "
+                                            f"expected {zoo_param_count(cfg)}")
+    check(all(l.is_cuda and l.dtype == torch.bfloat16 for l in tree_leaves(params)),
+          "params not bfloat16 on the card")
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, cut=cut, params=n_params,
+         init_s=time.perf_counter() - t0,
+         param_GB=sum(l.numel() * l.element_size() for l in tree_leaves(params)) / 1e9,
+         init_peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+    return model, params
+
+
+def zoo_batch(torch, cfg, b, s, gen, device, dtype=None):
+    """Tokens, and the stub's patch or frame embeddings (bfloat16 unless
+    ``dtype``): (B, P, D) for the vlm family, (B, max_source_len, D) for
+    audio."""
+    dtype = dtype or torch.bfloat16
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=device)}
+    if cfg.family == "vlm":
+        batch["extra"] = torch.randn((b, cfg.vision.num_patches, cfg.d_model), generator=gen,
+                                     device=device).to(dtype)
+    if cfg.family == "audio":
+        batch["source"] = torch.randn((b, cfg.encoder.max_source_len, cfg.d_model),
+                                      generator=gen, device=device).to(dtype)
+    return batch
+
+
+def timed_prefill(torch, step, params, batch):
+    """A warm-up call, then 3 timed: (last logits, wall ms of each)."""
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        w0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - w0))
+    return logits, times
+
+
+def moe_drop_share(torch, fn) -> float:
+    """Share of (token, choice) pairs past their expert's capacity in one
+    call of ``fn``, over every MoE layer it runs."""
+    from repro_torch.models import moe
+
+    real, kept, pairs = moe.route, [], []
+
+    def counting(params, xt, cfg):
+        out = real(params, xt, cfg)
+        kept.append(sum(int(v.sum()) for v in out[2]))
+        pairs.append(len(out[2]) * xt.shape[0])
+        return out
+
+    moe.route = counting
+    try:
+        fn()
+    finally:
+        moe.route = real
+    return 1.0 - sum(kept) / sum(pairs)
+
+
+def serve_decode(torch, model, params, cache, prompt, gen_len):
+    """Teacher-forced prompt, then ``gen_len`` greedy tokens through
+    ``make_serve_step``: (last logits, cache, generated tokens, prompt
+    seconds, generation seconds, the logits after the prompt)."""
+    from repro_torch.train.steps import make_serve_step
+
+    serve_step = make_serve_step(model)
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    for t in range(prompt.shape[1]):
+        logits, cache = serve_step(params, prompt[:, t:t + 1], cache, t)
+    torch.cuda.synchronize()
+    prompt_s = time.perf_counter() - w0
+    w0 = time.perf_counter()
+    out, prompt_logits = [], logits
+    tok = torch.argmax(logits, dim=-1, keepdim=True)
+    for t in range(prompt.shape[1], prompt.shape[1] + gen_len):
+        out.append(tok)
+        logits, cache = serve_step(params, tok, cache, t)
+        tok = torch.argmax(logits, dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    toks = torch.cat(out, dim=1)
+    check(bool(torch.isfinite(logits.float()).all()), f"{model.cfg.name}: non-finite decode logits")
+    check(bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all()),
+          f"{model.cfg.name}: generated token ids out of range")
+    return logits, cache, toks, prompt_s, time.perf_counter() - w0, prompt_logits
+
+
+def zoo_prefill(torch, model, params, batch, smi, phase, per_call, moe=False):
+    """Prefill through ``make_prefill_step``: 3 timed calls after a
+    warm-up, one profiled call (the tensor-core flash kernel alone, by
+    name), and with ``moe`` one more counting dropped pairs; the flash
+    launches equal ``per_call`` a call.  Returns the prefill line."""
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = model.cfg
+    step = make_prefill_step(model)
+    before = flash_attention.launches
+    logits, times = timed_prefill(torch, step, params, batch)
+    check(logits.shape == (SERVE_BATCH, cfg.vocab_size), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits.float()).all()), f"{cfg.name}: non-finite prefill logits")
+    prof = profile_call(torch, lambda: step(params, batch), moe=moe)
+    check_tc_only(prof, per_call, f"{cfg.name} prefill")
+    calls = 5
+    fields = {}
+    if moe:
+        fields["dropped_share"] = moe_drop_share(torch, lambda: step(params, batch))
+        calls += 1
+    launches = flash_attention.launches - before
+    check(launches == per_call * calls,
+          f"{cfg.name} prefill: {launches} flash launches, expected {per_call * calls}")
+    ms = statistics.median(times)
+    tokens = sum(v.shape[0] * v.shape[1] for v in batch.values())   # positions: tokens,
+    # patches and frames
+    row = dict(arch=cfg.name, layers=cfg.num_layers, batch=SERVE_BATCH,
+               seq={k: v.shape[1] for k, v in batch.items()}, ms=ms, ms_all=times,
+               tokens_per_s=tokens / (ms * 1e-3), flash_launches_per_call=per_call,
+               peak_GB=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi,
+               profile=prof, **fields)
+    emit(phase, **row)
+    return row
+
+
+def zoo_decode(torch, model, params, cache, smi, phase, moe=False, agree=None):
+    """Greedy decoding against the cache: no flash launch.  With
+    ``agree`` (the served model's prefill: prompt -> last logits, through
+    the flash kernel), the prefill of the prompt is held against its
+    teacher-forced decode (the cache path), in bfloat16, within
+    ``BF16_LOGIT_REL_PER_SQRT_LAYER`` x sqrt(decoder layers) of the
+    largest logit."""
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.train.steps import make_serve_step
+    from repro_torch.tree import tree_map
+
+    cfg = model.cfg
+    gen = torch.Generator(device=model.device).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, DECODE_PROMPT), generator=gen,
+                           device=model.device)
+    before = flash_attention.launches
+    size = cache_mb(cache)
+    logits, cache, toks, prompt_s, gen_s, prompt_logits = serve_decode(
+        torch, model, params, cache, prompt, DECODE_GEN)
+    check(flash_attention.launches == before, f"{cfg.name} decode launched the flash kernel")
+    fields = {}
+    if agree is not None:
+        with torch.no_grad():
+            prefill = agree(prompt).float()
+        decoded = prompt_logits.float()
+        scale = float(prefill.abs().max())
+        err = float((prefill - decoded).abs().max())
+        limit = BF16_LOGIT_REL_PER_SQRT_LAYER * cfg.num_layers ** 0.5 * scale
+        ok = err <= limit
+        emit(f"{phase}_agree", what=f"{cfg.name} as served, bf16: prefill vs decode at "
+                                    f"{DECODE_PROMPT - 1}", max_abs_err=err, max_abs_logit=scale,
+             limit=limit, rms_rel=float((prefill - decoded).norm() / prefill.norm()),
+             argmax_equal=float((prefill.argmax(-1) == decoded.argmax(-1)).float().mean()), ok=ok)
+        check(ok, f"{cfg.name}: served prefill and decode logits differ by {err} "
+                  f"(largest logit {scale})")
+    if moe:        # one more step, on a copy of the cache: capacity max(1, int(cf B k / E))
+        spare = tree_map(torch.clone, cache)
+        tok = toks[:, -1:]
+        fields["dropped_share"] = moe_drop_share(
+            torch, lambda: make_serve_step(model)(params, tok, spare, DECODE_PROMPT + DECODE_GEN))
+        del spare
+    emit(phase, arch=cfg.name, batch=SERVE_BATCH, prompt=DECODE_PROMPT, generated=DECODE_GEN,
+         cache_MB=size, prompt_tokens_per_s=SERVE_BATCH * DECODE_PROMPT / prompt_s,
+         tokens_per_s=SERVE_BATCH * DECODE_GEN / gen_s, ms_per_step=1e3 * gen_s / DECODE_GEN,
+         sample=toks[0, :12].tolist(), peak_GB=torch.cuda.max_memory_allocated() / 1e9,
+         nvidia_smi=smi, **fields)
+
+
+def moe_serve(torch, dev, smi):
+    """llama4-maverick (1 unit: a dense and a MoE block) and kimi-k2 (1
+    layer) at full width in bfloat16, one after the other: prefill of 4 x
+    2048 tokens through the flash kernel, then greedy decoding.  Returns
+    the flash launches of the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash_attention
+
+    flash_attention.launches = 0
+    for arch, units in MOE_SERVE.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=units * full.moe_every)
+        torch.cuda.reset_peak_memory_stats()
+        model, params = zoo_init(torch, dev, cfg, "moe_setup",
+                                 cut=f"depth {full.num_layers} -> {cfg.num_layers} layers")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = zoo_batch(torch, cfg, SERVE_BATCH, SERVE_SEQ, gen, dev)
+        zoo_prefill(torch, model, params, batch, smi, "moe_prefill", cfg.num_layers, moe=True)
+        cache = model.init_cache(SERVE_BATCH, DECODE_PROMPT + DECODE_GEN + 1)
+        zoo_decode(torch, model, params, cache, smi, "moe_decode", moe=True)
+        del model, params, cache, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return flash_attention.launches
+
+
+def vlm_serve(torch, dev, smi):
+    """internvl2-26b at full width and depth in bfloat16: prefill of 256
+    patch embeddings and 2048 tokens, 4 prompts, through the flash kernel
+    (48 launches a call), then text-only greedy decoding, held against a
+    text-only prefill of its prompt (48 launches more)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash_attention
+
+    flash_attention.launches = 0
+    cfg = get_config(VLM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model, params = zoo_init(torch, dev, cfg, "vlm_setup")
+    batch = zoo_batch(torch, cfg, SERVE_BATCH, SERVE_SEQ, torch.Generator(device=dev).manual_seed(1),
+                      dev)
+    zoo_prefill(torch, model, params, batch, smi, "vlm_prefill", cfg.num_layers)
+    cache = model.init_cache(SERVE_BATCH, DECODE_PROMPT + DECODE_GEN)
+    zoo_decode(torch, model, params, cache, smi, "vlm_decode",       # decode is text only
+               agree=lambda p: model.forward(params, p, last_only=True)[0][:, -1])
+    del model, params, cache, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return flash_attention.launches
+
+
+def audio_serve(torch, dev, smi):
+    """seamless-m4t-large-v2 whole in bfloat16: prefill of 1024 frames and
+    2048 decoder tokens, 4 prompts (24 non-causal encoder and 24 causal
+    decoder flash launches a call); then ``init_cache`` encodes once (24),
+    greedy decoding launches none, and a prefill of its prompt over the
+    same frames (48) is held against it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash_attention
+
+    flash_attention.launches = 0
+    cfg = get_config(AUDIO_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model, params = zoo_init(torch, dev, cfg, "audio_setup")
+    batch = zoo_batch(torch, cfg, SERVE_BATCH, SERVE_SEQ, torch.Generator(device=dev).manual_seed(1),
+                      dev)
+    per_call = cfg.encoder.num_layers + cfg.num_layers
+    zoo_prefill(torch, model, params, batch, smi, "audio_prefill", per_call)
+    before = flash_attention.launches
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    cache = model.init_cache(params, batch["source"], DECODE_PROMPT + DECODE_GEN)
+    torch.cuda.synchronize()
+    encode_ms = 1e3 * (time.perf_counter() - w0)
+    check(flash_attention.launches - before == cfg.encoder.num_layers,
+          f"init_cache launched {flash_attention.launches - before} flash kernels")
+    emit("audio_encode", arch=cfg.name, frames=cfg.encoder.max_source_len, ms=encode_ms,
+         cross_kv_MB=cache_mb(cache.cross_kv), nvidia_smi=smi)
+    zoo_decode(torch, model, params, cache, smi, "audio_decode",
+               agree=lambda p: model.forward(params, p, batch["source"], last_only=True)[0][:, -1])
+    del model, params, cache, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return flash_attention.launches
+
+
+def zoo_agree(torch, dev):
+    """Prefill (the flash kernel) against teacher-forced decode (the cache
+    path) at full width in float32, depth cut to 2 layers, within
+    ``F32_LOGIT_REL`` of the largest logit: internvl2's text path and
+    seamless (2 encoder and 2 decoder layers; the served bfloat16 models
+    are held to the same comparison in ``vlm_serve`` and ``audio_serve``,
+    where bfloat16's rounding sets a looser limit).  Then the
+    smoke configs of the four architectures in float32, card against
+    CPU: forward logits, decode logits, and a train step with adam,
+    adafactor and sgd, held to ``train_agree``'s bounds."""
+    from repro_torch.configs import build_model, get_config, get_smoke_config
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train.steps import TrainState, make_serve_step, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=2)
+        if cfg.encoder is not None:
+            cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+                cfg.encoder, num_layers=2, max_source_len=128))
+        model = build_model(cfg, attn_impl="pallas", dtype=torch.float32)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = model.init(gen)
+        batch = zoo_batch(torch, cfg, 2, DECODE_PROMPT, gen, dev, torch.float32)
+        with torch.no_grad():                       # decode is text only
+            if cfg.family == "audio":
+                prefill = model.forward(params, batch["tokens"], batch["source"],
+                                        last_only=True)[0][:, -1]
+                cache = model.init_cache(params, batch["source"], DECODE_PROMPT,
+                                         dtype=torch.float32)
+            else:
+                prefill = model.forward(params, batch["tokens"], last_only=True)[0][:, -1]
+                cache = model.init_cache(2, DECODE_PROMPT, dtype=torch.float32)
+        step = make_serve_step(model)
+        for t in range(DECODE_PROMPT):
+            logits, cache = step(params, batch["tokens"][:, t:t + 1], cache, t)
+        scale = float(prefill.abs().max())
+        err = float((prefill - logits).abs().max())
+        ok = err <= F32_LOGIT_REL * scale
+        emit("zoo_agree", what=f"{arch} full width, 2 layers, f32: prefill vs decode at "
+                               f"{DECODE_PROMPT - 1}", max_abs_err=err, max_abs_logit=scale,
+             limit=F32_LOGIT_REL * scale, ok=ok)
+        check(ok, f"{arch}: prefill and decode logits differ by {err} (largest logit {scale})")
+        del model, params, cache
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    cpu = torch.device("cpu")
+    for arch in ZOO_ARCHS:
+        scfg = get_smoke_config(arch)           # audio: 64 frames (max_source_len)
+        p_cpu = build_model(scfg, device=cpu).init(torch.Generator().manual_seed(0))
+        batch = zoo_batch(torch, scfg, 2, 100, torch.Generator().manual_seed(2), cpu,
+                          torch.float32)
+        out = {}
+        for key, where in (("card", dev), ("cpu", cpu)):
+            model = build_model(scfg, attn_impl="pallas", dtype=torch.float32, device=where)
+            params = tree_map(lambda p: p.to(where), p_cpu)
+            b = tree_map(lambda t: t.to(where), batch)
+            with torch.no_grad():
+                if scfg.family == "audio":
+                    logits, _ = model.forward(params, b["tokens"], b["source"])
+                    cache = model.init_cache(params, b["source"], 4, dtype=torch.float32)
+                else:
+                    logits, _ = model.forward(params, b["tokens"], extra_embeds=b.get("extra"))
+                    cache = model.init_cache(2, 4, dtype=torch.float32)
+                steps = []
+                for t in range(4):
+                    step_logits, cache = model.decode_step(params, b["tokens"][:, t:t + 1],
+                                                           cache, t)
+                    steps.append(step_logits)
+            out[key] = (logits.cpu(), torch.cat(steps, dim=1).cpu())
+        errs = {"forward": float((out["card"][0] - out["cpu"][0]).abs().max()),
+                "decode": float((out["card"][1] - out["cpu"][1]).abs().max())}
+        ok = max(errs.values()) <= 2e-3
+        emit("zoo_agree", what=f"{arch} smoke config, f32: forward (S=100) and 4 decode steps, "
+                               "card vs CPU", max_abs_err=errs, limit=2e-3, ok=ok)
+        check(ok, f"{arch} smoke: card and CPU differ by {errs}")
+
+        for opt_name in TRAIN_AGREE_LAUNCHES:
+            lr = 0.05 if opt_name == "sgd" else scfg.learning_rate
+            res = {}
+            for key, where in (("card", dev), ("cpu", cpu)):
+                model = build_model(scfg, dtype=torch.float32, device=where)
+                opt = get_optimizer(opt_name, lr)
+                params = tree_map(lambda p: p.to(where), p_cpu)
+                state = TrainState(params, opt.init(params),
+                                   torch.zeros((), dtype=torch.int32, device=where))
+                res[key] = make_train_step(model, opt)(
+                    state, tree_map(lambda t: t.to(where), batch))
+            (card, m_card), (host, m_host) = res["card"], res["cpu"]
+            errs = {"loss": rel(m_card["total_loss"], m_host["total_loss"]),
+                    "opt_state": max([rel(a, b) for a, b in zip(tree_leaves(card.opt_state),
+                                                                tree_leaves(host.opt_state))
+                                      if b.is_floating_point()], default=0.0),
+                    "params_abs": max_param_diff(card.params, host.params)}
+            ok = (errs["loss"] <= 1e-4 and errs["opt_state"] <= 1e-4
+                  and (opt_name != "sgd" or errs["params_abs"] <= 1e-5)
+                  and int(card.step) == int(host.step) == 1)
+            emit("zoo_agree", what=f"{arch} smoke, f32, one train step, {opt_name}: card vs CPU",
+                 max_rel_err_loss=errs["loss"], max_rel_err_opt_state=errs["opt_state"],
+                 max_abs_err_params=errs["params_abs"], limit_rel=1e-4,
+                 limit_params_sgd=1e-5, ok=ok)
+            check(ok, f"zoo_agree: {arch} {opt_name}: {errs}")
+    phase_wall("zoo_agree", t0)
 
 
 def mamba2_train_trees(torch, dev, gen, k):
@@ -2149,7 +2605,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 16-19. training: FedLEO orbit replicas with K1, plain train steps,
+    # 16-19. the zoo's serving paths (MoE, the VLM stub, the encoder-decoder),
+    # each model freed before the next is built, and their agreement checks
+    for name, phase in (("moe_serve", moe_serve), ("vlm_serve", vlm_serve),
+                        ("audio_serve", audio_serve)):
+        t0 = time.perf_counter()
+        flash_launches += phase(torch, dev, smi)
+        phase_wall(name, t0)
+    zoo_agree(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 20-23. training: FedLEO orbit replicas with K1, plain train steps,
     # and their agreement checks
     from repro_torch.configs import get_config
 

@@ -2,8 +2,7 @@
 
 The counterpart of ``src/repro/configs/registry.py``.  Importing it
 imports no model module: ``build_model`` imports the one it builds.
-The dense, ssm and hybrid families are ported; the others raise, naming
-the ROADMAP item that ports them.
+Every family is ported.
 """
 from __future__ import annotations
 
@@ -28,13 +27,6 @@ _MODULES = {
 }
 
 ARCH_IDS = tuple(_MODULES)
-
-_NOT_PORTED = {
-    "moe": "MoE (ROADMAP §A item 6c)",
-    "vlm": "the VLM stub (ROADMAP §A item 6c)",
-    "audio": "EncoderDecoder (ROADMAP §A item 6c)",
-}
-
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in _MODULES:
@@ -64,11 +56,16 @@ def build_model(
     long-context variant.
     """
     dtype = dtype or torch.bfloat16
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import Transformer
 
         return Transformer(cfg, attn_impl=attn_impl, dtype=dtype,
                            sliding_window=sliding_window, device=device)
+    if cfg.family == "audio":
+        from repro_torch.models.transformer import EncoderDecoder
+
+        return EncoderDecoder(cfg, attn_impl=attn_impl, dtype=dtype,
+                              sliding_window=sliding_window, device=device)
     if cfg.family == "ssm":
         from repro_torch.models.mamba2 import Mamba2Model
 
@@ -78,9 +75,4 @@ def build_model(
 
         return Zamba2Model(cfg, dtype=dtype, attn_impl=attn_impl, ssd_impl=ssd_impl,
                            sliding_window=sliding_window, device=device)
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} needs {_NOT_PORTED[cfg.family]}, "
-            "not ported yet"
-        )
     raise ValueError(f"unknown family {cfg.family!r}")

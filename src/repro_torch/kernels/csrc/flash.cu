@@ -51,7 +51,8 @@
 //     eight warps (empty), so the next tile lands while this one computes.
 //     TMA writes the 128-byte swizzle that wgmma reads (and that keeps the
 //     epilogue's shared-memory traffic conflict-free), and zero-fills rows
-//     past S and, at D = 32 (padded to 64), the columns past D.
+//     past S and the columns past D where D is not a multiple of 64 (D = 32
+//     runs in one 64-wide box, D = 112 in two: the tiles are 128 wide).
 //   * Rows start on 16-byte boundaries (strides a multiple of 8 elements), as
 //     TMA requires.  At D = 256 the block holds Q 64 KB + 2 stages of K and V
 //     128 KB of the 227 KB; at D <= 64 two blocks share an SM.
@@ -285,7 +286,7 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)   // two blocks a
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                     Params p) {
-  constexpr int DP = D < 64 ? 64 : D;          // shared tiles and products are >= 64 wide
+  constexpr int DP = (D + 63) / 64 * 64;       // shared tiles and products are whole 64-wide boxes
   constexpr int BQ = kTcBlockQ;
   constexpr int BK = kTcBlockK;
   constexpr int Q_BYTES = BQ * DP * 2;
@@ -552,7 +553,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, con
 template <int D>
 cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                    __nv_bfloat16* o, const Params& params, cudaStream_t stream) {
-  constexpr int DP = D < 64 ? 64 : D;
+  constexpr int DP = (D + 63) / 64 * 64;
   // Q, two stages of K and V, and 1 KB to align the tiles to 1024 bytes
   constexpr int smem = (kTcBlockQ + 4 * kTcBlockK) * DP * 2 + 1024;
   Params p = params;
@@ -597,6 +598,7 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int S, int 
   switch (D) {
     case 32: err = launch<32>(qt, kt, vt, ot, p, st); break;
     case 64: err = launch<64>(qt, kt, vt, ot, p, st); break;
+    case 112: err = launch<112>(qt, kt, vt, ot, p, st); break;
     case 128: err = launch<128>(qt, kt, vt, ot, p, st); break;
     case 256: err = launch<256>(qt, kt, vt, ot, p, st); break;
     default: err = cudaErrorInvalidValue;

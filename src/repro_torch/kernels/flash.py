@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 # the device kernel each dtype launches, as a profiler names it

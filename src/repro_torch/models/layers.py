@@ -93,18 +93,22 @@ class KVCache(NamedTuple):
         )
 
 
-def _normal(rng: torch.Generator, shape, scale: float) -> torch.Tensor:
-    return torch.randn(shape, generator=rng, device=rng.device) * scale
+def _normal(rng: torch.Generator, shape, scale: float,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A float32 draw on ``rng``'s device times ``scale``, stored in
+    ``dtype`` (the float32 draw is freed before the next one)."""
+    return torch.randn(shape, generator=rng, device=rng.device).mul_(scale).to(dtype)
 
 
-def init_attention(rng: torch.Generator, cfg: AttentionConfig) -> Dict:
+def init_attention(rng: torch.Generator, cfg: AttentionConfig,
+                   dtype: torch.dtype = torch.float32) -> Dict:
     d, h, g, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = 1.0 / math.sqrt(d)
     return {
-        "wq": _normal(rng, (d, h, hd), s),
-        "wk": _normal(rng, (d, g, hd), s),
-        "wv": _normal(rng, (d, g, hd), s),
-        "wo": _normal(rng, (h, hd, d), s / math.sqrt(h)),
+        "wq": _normal(rng, (d, h, hd), s, dtype),
+        "wk": _normal(rng, (d, g, hd), s, dtype),
+        "wv": _normal(rng, (d, g, hd), s, dtype),
+        "wo": _normal(rng, (h, hd, d), s / math.sqrt(h), dtype),
     }
 
 
@@ -326,13 +330,14 @@ def encode_memory_kv(params: Dict, memory: torch.Tensor, cfg: AttentionConfig):
 
 
 # --- gated FFN ---------------------------------------------------------------------
-def init_glu_ffn(rng: torch.Generator, d_model: int, d_ff: int) -> Dict:
+def init_glu_ffn(rng: torch.Generator, d_model: int, d_ff: int,
+                 dtype: torch.dtype = torch.float32) -> Dict:
     s_in = 1.0 / math.sqrt(d_model)
     s_out = 1.0 / math.sqrt(d_ff)
     return {
-        "w_gate": _normal(rng, (d_model, d_ff), s_in),
-        "w_up": _normal(rng, (d_model, d_ff), s_in),
-        "w_down": _normal(rng, (d_ff, d_model), s_out),
+        "w_gate": _normal(rng, (d_model, d_ff), s_in, dtype),
+        "w_up": _normal(rng, (d_model, d_ff), s_in, dtype),
+        "w_down": _normal(rng, (d_ff, d_model), s_out, dtype),
     }
 
 

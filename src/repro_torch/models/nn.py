@@ -149,8 +149,8 @@ def apply_layernorm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
-def init_rmsnorm(dim: int) -> Dict:
-    return {"scale": torch.ones((dim,), dtype=torch.float32)}
+def init_rmsnorm(dim: int, dtype: torch.dtype = torch.float32) -> Dict:
+    return {"scale": torch.ones((dim,), dtype=dtype)}
 
 
 def apply_rmsnorm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -162,9 +162,10 @@ def apply_rmsnorm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["scale"]).to(x.dtype)
 
 
-def init_embedding(rng: torch.Generator, vocab: int, dim: int) -> Dict:
+def init_embedding(rng: torch.Generator, vocab: int, dim: int,
+                   dtype: torch.dtype = torch.float32) -> Dict:
     table = torch.randn((vocab, dim), generator=rng, device=rng.device)
-    return {"table": table * 0.02}
+    return {"table": table.mul_(0.02).to(dtype)}
 
 
 def apply_embedding(
@@ -178,7 +179,10 @@ def apply_embedding(
 def init_stacked(rng: torch.Generator, init_one, count: int, device: torch.device) -> PyTree:
     """``count`` draws of ``init_one(rng)`` stacked on a new leading
     axis, filled one at a time on ``device`` (the peak is the stack
-    plus one draw), as the reference's ``jax.vmap`` init lays them out."""
+    plus one draw), as the reference's ``jax.vmap`` init lays them out.
+    A single draw is stacked as a view, with no copy."""
+    if count == 1:
+        return tree_map(lambda p: p.to(device).unsqueeze(0), init_one(rng))
     stacked = None
     for i in range(count):
         one = init_one(rng)

@@ -11,8 +11,11 @@ The counterpart of ``src/repro/train/steps.py``:
     ``make_greedy_decode`` (a Python loop in place of ``lax.scan``),
     which run under ``torch.no_grad``.
 
-Batches are dicts: ``{"tokens": (B, S) int}``.  Decode: token (B, 1) +
-cache + position.  The vlm and audio families are not ported yet.
+Batches are dicts:
+  LM:      {"tokens": (B, S) int, "extra": optional (B, P, D) modality embeds (vlm)}
+  enc-dec: {"tokens": (B, S) int, "source": (B, S_enc, D)}
+Decode: token (B, 1) + cache + position.  MoE's load-balance loss is
+added to the LM loss.
 """
 from __future__ import annotations
 
@@ -31,11 +34,6 @@ class TrainState(NamedTuple):
     params: PyTree
     opt_state: PyTree
     step: torch.Tensor
-
-
-def _not_ported(cfg) -> None:
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
@@ -58,13 +56,28 @@ def make_init_fn(model) -> Callable:
     return init
 
 
+def _forward(model, params, batch: Dict, last_only: bool = False):
+    """(logits, aux, number of non-text positions prepended) of ``model``
+    on ``batch``, by family."""
+    family = model.cfg.family
+    if family == "audio":
+        logits, aux = model.forward(params, batch["tokens"], batch["source"],
+                                    last_only=last_only)
+        return logits, aux, 0
+    if family == "vlm":
+        logits, aux = model.forward(params, batch["tokens"], extra_embeds=batch["extra"],
+                                    last_only=last_only)
+        return logits, aux, batch["extra"].shape[1]
+    logits, aux = model.forward(params, batch["tokens"], last_only=last_only)
+    return logits, aux, 0
+
+
 def _loss_fn(model) -> Callable:
     """(params, batch) -> (total loss, LM loss) of ``model``."""
-    _not_ported(model.cfg)
 
     def loss_fn(params, batch):
-        logits, aux = model.forward(params, batch["tokens"])
-        loss = lm_loss(logits, batch["tokens"])
+        logits, aux, num_prefix = _forward(model, params, batch)
+        loss = lm_loss(logits, batch["tokens"], num_prefix)
         return loss + aux, loss
 
     return loss_fn
@@ -112,13 +125,10 @@ def make_train_step(
 def make_prefill_step(model) -> Callable:
     """Inference prefill: full-sequence forward, logits for the last
     position only (never materializes the (B, S, V) tensor)."""
-    cfg = model.cfg
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        _not_ported(cfg)
-        logits, _ = model.forward(params, batch["tokens"], last_only=True)
-        return logits[:, -1, :]
+        return _forward(model, params, batch, last_only=True)[0][:, -1, :]
 
     return prefill_step
 

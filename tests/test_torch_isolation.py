@@ -7,9 +7,11 @@ package, and its copied numpy modules stay verbatim copies.
     and one traced CPU FedAvgStar round, and reports on its trace;
     another imports the serving slice (configs, transformer, serving
     steps) and serves a smoke gemma on the CPU; a third prefills and
-    decodes smoke mamba2 and zamba2 models on the CPU; a fourth runs the
-    training driver (``python -m repro_torch.launch.train``) in FedLEO
-    mode on the CPU with a checkpoint.
+    decodes smoke mamba2 and zamba2 models on the CPU; a fourth prefills,
+    decodes and trains smoke llama4, kimi-k2, internvl2 and seamless
+    models (the moe, vlm and audio families); a fifth runs the training
+    driver (``python -m repro_torch.launch.train``) in FedLEO mode on the
+    CPU with a checkpoint.
   * An AST scan of every module of the port and of ``chip_smoke.py``
     finds no import of jax or of the reference package.
   * Every copied module equals its reference file with the imports
@@ -199,6 +201,52 @@ def test_ssm_serving_runs_with_jax_and_reference_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ISOLATED-SSM-OK" in proc.stdout
+
+
+_ISOLATED_ZOO = _ISOLATED_RUN[:_ISOLATED_RUN.index("import repro_torch")] + textwrap.dedent("""
+    from repro_torch.configs import build_model, get_smoke_config
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train.steps import (TrainState, make_greedy_decode, make_prefill_step,
+                                         make_train_step)
+
+    gen = torch.Generator().manual_seed(1)
+    for arch in ("llama4-maverick-400b-a17b", "kimi-k2-1t-a32b", "internvl2-26b",
+                 "seamless-m4t-large-v2"):
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg, attn_impl="pallas", device="cpu")
+        params = model.init(torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24), generator=gen)}
+        if cfg.family == "vlm":
+            batch["extra"] = torch.randn((2, cfg.vision.num_patches, cfg.d_model), generator=gen)
+        if cfg.family == "audio":
+            batch["source"] = torch.randn((2, 16, cfg.d_model), generator=gen)
+            cache = model.init_cache(params, batch["source"], 8)
+        else:
+            cache = model.init_cache(2, 8)
+        logits = make_prefill_step(model)(params, batch)
+        toks, cache = make_greedy_decode(model, 3)(params, batch["tokens"][:, :1], cache, 0)
+        assert logits.shape == (2, cfg.vocab_size) and toks.shape == (2, 3)
+        assert bool(torch.isfinite(logits.float()).all())
+        plain = build_model(cfg, dtype=torch.float32, device="cpu")
+        opt = get_optimizer("sgd", 0.1)
+        p32 = plain.init(torch.Generator().manual_seed(0))
+        state = TrainState(p32, opt.init(p32), torch.zeros((), dtype=torch.int32))
+        state, metrics = make_train_step(plain, opt)(state, batch)
+        assert bool(torch.isfinite(metrics["total_loss"])) and int(state.step) == 1
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not loaded, loaded
+    print("ISOLATED-ZOO-OK")
+""")
+
+
+def test_moe_vlm_and_encdec_run_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _ISOLATED_ZOO], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ISOLATED-ZOO-OK" in proc.stdout
 
 
 _ISOLATED_TRAIN = _ISOLATED_RUN[:_ISOLATED_RUN.index("import repro_torch")] + textwrap.dedent("""

@@ -354,9 +354,14 @@ def test_aggregate_leaves_rejects_what_it_does_not_take(cuda_device):
 
 # --- flash attention ---------------------------------------------------------------
 # (b, s, h, g, d): the gemma-7b head, phi3's GQA heads, MQA at head_dim 32,
-# and ragged S at head_dims 64 and 128 (no block divides S)
+# ragged S at head_dims 64 and 128 (no block divides S), kimi-k2's head
+# (head_dim 112, two 64-wide boxes, the second half past D), the seamless
+# encoder's heads (run in every mode, non-causal among them), and the GQA
+# ratios 6 and 5 of internvl2-26b and llama4-maverick (the latter at a
+# ragged S)
 FLASH_SHAPES = [(1, 512, 16, 16, 256), (1, 384, 40, 10, 128), (2, 256, 4, 1, 32),
-                (1, 77, 4, 2, 64), (1, 200, 8, 2, 128)]
+                (1, 77, 4, 2, 64), (1, 200, 8, 2, 128), (1, 256, 64, 8, 112),
+                (2, 1024, 16, 16, 64), (1, 256, 48, 8, 128), (1, 333, 40, 8, 128)]
 # (causal, window, soft_cap); window without causal skips tiles on one side only
 FLASH_MODES = [(True, None, None), (False, None, None), (True, 96, None),
                (True, None, 20.0), (False, 96, None)]
@@ -894,3 +899,30 @@ def test_forward_only_kernels_refuse_autograd_on_the_card(cuda_device):
         ssd_ops.ssd(x, dt, A, bc, bc, chunk=32)
     torch.cuda.synchronize()
     assert (flash_attention.launches, ssd_scan.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k,capacity_factor", [(1, 2.0), (2, 1.25), (2, 0.5)])
+def test_apply_moe_on_the_card_matches_the_cpu(cuda_device, top_k, capacity_factor):
+    """MoE at a smoke width (4 experts, d 256) in float32: the card's slot
+    assignment equals the CPU's, dropped tokens included (capacity factor
+    0.5 drops), and the outputs agree within 1e-5 of the largest."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+
+    cfg = MoEConfig(num_experts=4, top_k=top_k, d_ff_expert=128,
+                    capacity_factor=capacity_factor, num_shared_experts=1)
+    params = moe.init_moe(torch.Generator().manual_seed(top_k), 256, cfg)
+    x = torch.randn((2, 64, 256), generator=torch.Generator().manual_seed(1))
+    on_card = {k: (v.to(cuda_device) if torch.is_tensor(v) else
+                   {kk: vv.to(cuda_device) for kk, vv in v.items()}) for k, v in params.items()}
+    xt = x.reshape(-1, 256)
+    _, flats, valids, _, _ = moe.route(params, xt, cfg)
+    _, flats_c, valids_c, _, _ = moe.route(on_card, xt.to(cuda_device), cfg)
+    for a, b in zip(flats + valids, flats_c + valids_c):
+        assert torch.equal(a, b.cpu())
+    want, aux = moe.apply_moe(params, x, cfg)
+    got, aux_c = moe.apply_moe(on_card, x.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert abs(float(aux_c) - float(aux)) <= 1e-6

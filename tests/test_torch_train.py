@@ -21,7 +21,6 @@ a seed.  Models run in float32.  Tolerances:
 """
 import dataclasses
 import math
-import types
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +33,7 @@ from repro.configs import get_smoke_config as ref_smoke_config
 from repro.optim import optimizers as jopt
 from repro.train import fedleo_step as jfl
 from repro.train import steps as jsteps
-from repro_torch.configs import ARCH_IDS, build_model, get_smoke_config
+from repro_torch.configs import build_model, get_smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import flash_ops, ssd_ops
 from repro_torch.kernels.aggregate_ref import bf16_ulp_distance
@@ -43,7 +42,8 @@ from repro_torch.train import fedleo_step as tfl
 from repro_torch.train import steps as tsteps
 from repro_torch.tree import flatten_up_to, tree_flatten, tree_leaves, tree_map
 
-FAMILIES = {"dense": "gemma-7b", "ssm": "mamba2-780m", "hybrid": "zamba2-1.2b"}
+FAMILIES = {"dense": "gemma-7b", "ssm": "mamba2-780m", "hybrid": "zamba2-1.2b",
+            "moe": "kimi-k2-1t-a32b"}
 
 
 def _np(x):
@@ -161,12 +161,25 @@ def test_train_step_with_config_optimizer(family):
     assert int(ts.opt_state.step) == int(js.opt_state.step) == 1
 
 
-def test_train_step_refuses_families_not_ported():
-    for arch in ARCH_IDS:
-        cfg = get_smoke_config(arch)
-        if cfg.family in ("vlm", "audio"):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                tsteps.make_train_step(types.SimpleNamespace(cfg=cfg), topt.sgd(0.1))
+@pytest.mark.parametrize("arch", ["internvl2-26b", "seamless-m4t-large-v2"])
+def test_train_step_takes_the_multimodal_batch(arch):
+    """The vlm (``extra``, its patches left out of the loss) and audio
+    (``source``) batches through 2 SGD steps, against the reference's."""
+    ref, port, rp, tp = _models(arch)
+    rng = np.random.default_rng(5)
+    key = "extra" if port.cfg.family == "vlm" else "source"
+    n = port.cfg.vision.num_patches if key == "extra" else 24
+    embeds = rng.standard_normal((2, n, port.cfg.d_model)).astype(np.float32)
+    jopt_, topt_ = jopt.sgd(0.5), topt.sgd(0.5)
+    jstep = jax.jit(jsteps.make_train_step(ref, jopt_))
+    tstep = tsteps.make_train_step(port, topt_)
+    js, ts = _ref_state(rp, jopt_), _port_state(tp, topt_)
+    for i in range(2):
+        tokens = _tokens(port.cfg.vocab_size, (2, 16), 20 + i)
+        js, jm = jstep(js, {"tokens": jnp.asarray(tokens), key: jnp.asarray(embeds)})
+        ts, tm = tstep(ts, {"tokens": torch.from_numpy(tokens), key: torch.from_numpy(embeds)})
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+    _assert_trees_close(ts.params, js.params, 1e-5)
 
 
 # --- optimizers ------------------------------------------------------------------------
@@ -432,7 +445,7 @@ def test_remat_changes_memory_not_values(family, monkeypatch):
     from repro_torch.models import hybrid, mamba2, transformer
 
     calls = []
-    if family == "dense":
+    if family in ("dense", "moe"):
         real = transformer.Transformer._apply_block
         monkeypatch.setattr(transformer.Transformer, "_apply_block",
                             lambda self, *a, **k: calls.append(1) or real(self, *a, **k))

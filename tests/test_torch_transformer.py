@@ -200,13 +200,20 @@ def test_port_decode_matches_forward(arch):
     _close(torch.stack(outs, dim=1), full.float().numpy(), 3e-2)
 
 
-def test_unported_families_raise():
-    unported = [a for a in ARCH_IDS
-                if get_smoke_config(a).family not in ("dense", "ssm", "hybrid")]
-    assert {get_smoke_config(a).family for a in unported} == {"moe", "vlm", "audio"}
-    for arch in unported:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(get_smoke_config(arch), device="cpu")
+def test_every_family_builds_on_the_cpu():
+    """``build_model`` builds all ten architectures, each family by the
+    reference's class, on the device asked for."""
+    classes = {"dense": "Transformer", "moe": "Transformer", "vlm": "Transformer",
+               "audio": "EncoderDecoder", "ssm": "Mamba2Model", "hybrid": "Zamba2Model"}
+    seen = set()
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg, device="cpu")
+        assert type(model).__name__ == classes[cfg.family] == type(
+            ref_build_model(ref_smoke_config(arch))).__name__
+        assert model.device.type == "cpu" and model.cfg is cfg
+        seen.add(cfg.family)
+    assert seen == set(classes)
 
 
 @pytest.mark.parametrize("window", [None, 8])
