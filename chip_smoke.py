@@ -125,6 +125,28 @@ script exits non-zero without a result line:
                    and adafactor; then ``python -m repro_torch.launch.train
                    --smoke --fedleo`` on the card, its checkpoint restored
                    on the card equal to what it saved.
+ 24. calibrate   — the launch layer: ``measure_smoke_step_s`` (a smoke-config
+                   float32 train step of 4 x 128 tokens, min of 3) of each
+                   of the 10 architectures on the card, with the card's
+                   name and power limit; ``step_time_s(mode="measured")``
+                   equal to that calibration scaled by tokens; phase
+                   ``fleet``'s run priced in ``measured`` mode (finite
+                   round times, apart from the analytic fleet's; one K1
+                   launch per aggregation).
+ 25. compiled    — ``compiled_step_cost(arch, "train_4k")`` of the 10
+                   architectures: FLOPs and bytes counted on fake tensors
+                   at 4 x 128 and scaled by tokens, the FLOPs held to the
+                   CPU tests' band around the analytic 6 N D.
+ 26. dryrun      — ``python -m repro_torch.launch.dryrun`` on the 16 x 16
+                   production mesh (torch's fake process-group backend,
+                   no card), one subprocess a pair, all at once: gemma-7b
+                   train_4k, kimi-k2 prefill_32k, mamba2-780m decode_32k,
+                   zamba2-1.2b train_4k, internvl2-26b prefill_32k and
+                   seamless decode_32k; per-device memory, FLOPs, bytes
+                   and collective bytes, whether the per-device bytes fit
+                   the card; train pairs must show collective traffic.
+                   The 40-pair sweep is not run: its time is estimated
+                   from the pairs'.
 
 With --profile, one more FedLEO round runs after the launch counts are
 read, under torch.profiler, after phase ``main`` and after phase
@@ -146,6 +168,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -273,6 +296,16 @@ ZOO_ARCHS = (*MOE_SERVE, VLM_ARCH, AUDIO_ARCH)
 # seamless-m4t-large-v2).
 F32_LOGIT_REL, BF16_LOGIT_REL_PER_SQRT_LAYER = 1e-4, 2e-2
 GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
+# the launch layer: calibrate's smoke step shape (roofline's compile shape);
+# the compiled FLOPs' band around the analytic 6 N D (tests/test_torch_launch.py;
+# seamless's 1024 source frames are not in the analytic token count); the dry
+# run's pairs, one of each family at least, on the 16 x 16 mesh
+CALIBRATE_BATCH, CALIBRATE_SEQ = 4, 128
+COMPILED_FLOP_BAND, COMPILED_FLOP_BANDS = (0.95, 1.30), {"seamless-m4t-large-v2": (1.5, 1.8)}
+DRYRUN_PAIRS = [("gemma-7b", "train_4k"), ("kimi-k2-1t-a32b", "prefill_32k"),
+                ("mamba2-780m", "decode_32k"), ("zamba2-1.2b", "train_4k"),
+                ("internvl2-26b", "prefill_32k"), ("seamless-m4t-large-v2", "decode_32k")]
+DRYRUN_TIMEOUT_S = 480
 
 
 def ptxas_summary(log: str) -> dict:
@@ -1080,7 +1113,8 @@ def run_unet(torch, args, smi):
 def run_fleet(torch, uniform_hours):
     """The main path's FedLEO run on a heterogeneous fleet (gemma-7b and
     mamba2-780m planes on the orbital GPU tier, one plane at the paper's
-    uniform timing); returns aggregate_flat's launches."""
+    uniform timing); returns aggregate_flat's launches and the round
+    times."""
     from repro_torch.compute import SatelliteComputeProfile
     from repro_torch.core import FedLEO, SimConfig
 
@@ -1122,7 +1156,7 @@ def run_fleet(torch, uniform_hours):
     check(finite, "non-finite fleet params")
     check(not violations, f"schedule sanitizer: {violations}")
     phase_wall("fleet", t0)
-    return launches
+    return launches, hours
 
 
 def run_multitenant(torch):
@@ -2519,6 +2553,153 @@ def train_agree(torch, dev):
     phase_wall("train_agree", t0)
 
 
+def run_calibrate(torch, dev, smi, analytic_hours):
+    """``measure_smoke_step_s`` of every architecture on the card, the
+    roofline's ``measured`` mode equal to its token-scaled measurement,
+    and phase ``fleet``'s run priced in ``measured`` mode; returns
+    aggregate_flat's launches."""
+    from repro_torch.compute import DEVICE_TIERS, SatelliteComputeProfile, roofline
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES
+    from repro_torch.core import FedLEO, SimConfig
+    from repro_torch.launch import calibrate
+
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        seconds = calibrate.measure_smoke_step_s(arch, device=dev)
+        emit("calibrate", arch=arch, what="smoke f32 train step, 4 x 128 tokens, min of 3",
+             seconds=seconds, nvidia_smi=smi)
+        check(math.isfinite(seconds) and seconds > 0, f"calibrate: {arch} step {seconds}")
+    # the measured mode scales the calibration it reads by tokens
+    measured, real = {}, calibrate.measure_smoke_step_s
+
+    def recording(arch_id, **kw):
+        measured[arch_id] = real(arch_id, **kw)
+        return measured[arch_id]
+
+    calibrate.measure_smoke_step_s = recording
+    try:
+        roofline._measured_step_time_s.cache_clear()
+        roofline.step_time_s.cache_clear()
+        shape = INPUT_SHAPES["train_4k"]
+        scale = shape.global_batch * shape.seq_len / (CALIBRATE_BATCH * CALIBRATE_SEQ)
+        for arch in ARCH_IDS:
+            got = roofline.step_time_s(arch, "train_4k", DEVICE_TIERS["orbital-gpu"],
+                                       mode="measured")
+            emit("calibrate", arch=arch, what="step_time_s(train_4k, measured)", seconds=got,
+                 calibration_s=measured[arch], token_scale=scale, nvidia_smi=smi)
+            check(got == measured[arch] * scale,
+                  f"measured mode: {got} s is not {measured[arch]} x {scale}")
+
+        rounds = len(analytic_hours)
+        # measured mode times the smoke configs (the profile refuses smoke=False)
+        profile = SatelliteComputeProfile.per_plane(FLEET_ARCHS, device="orbital-gpu",
+                                                    mode="measured")
+        task = make_task((32, 64), 128, SCENARIO["train"], 16, SIM_EPOCHS, None)
+        reset_aggregation_counts()
+        strategy = FedLEO(task, SimConfig(horizon_hours=72.0, use_kernel=True, compute=profile))
+        res = strategy.run(max_rounds=rounds)
+        launches, calls = aggregation_counts()
+    finally:
+        calibrate.measure_smoke_step_s = real
+    hours = [h.t_hours for h in res.history]
+    expected = rounds * (SCENARIO["num_planes"] + 1)
+    emit("calibrate", what="phase fleet's run priced in measured mode", archs=FLEET_ARCHS,
+         t_hours=hours, t_hours_analytic=analytic_hours,
+         plane_seconds_per_sample=[r["seconds_per_sample"]
+                                   for r in strategy.compute.plane_summary()],
+         aggregate_flat_launches=launches, expected_launches=expected, nvidia_smi=smi)
+    check(launches == calls == expected,
+          f"aggregate_flat launched {launches} times for {calls} aggregations, expected {expected}")
+    check(len(hours) == rounds and all(math.isfinite(h) for h in hours),
+          f"measured fleet round times {hours}")
+    check(hours != analytic_hours, "the measured fleet kept the analytic round times")
+    phase_wall("calibrate", t0)
+    return launches
+
+
+def run_compiled(torch):
+    """``compiled_step_cost`` of every architecture (the smoke train step
+    counted on fake tensors at 4 x 128, token-scaled to train_4k), its
+    FLOPs held to the CPU tests' band around the analytic 6 N D."""
+    from repro_torch.compute import roofline
+    from repro_torch.configs import ARCH_IDS
+
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        w0 = time.perf_counter()
+        cost = roofline.compiled_step_cost(arch, "train_4k")
+        analytic = roofline.analytic_step_cost(arch, "train_4k", True)
+        ratio = cost.flops / analytic.flops
+        lo, hi = COMPILED_FLOP_BANDS.get(arch, COMPILED_FLOP_BAND)
+        emit("compiled", arch=arch, shape="train_4k", flops=cost.flops, bytes=cost.hbm_bytes,
+             tokens=cost.tokens, analytic_flops=analytic.flops, flops_over_analytic=ratio,
+             band=[lo, hi], seconds=time.perf_counter() - w0)
+        check(lo <= ratio <= hi and cost.hbm_bytes > 0,
+              f"compiled: {arch} FLOPs {ratio:.3f}x the analytic count, band [{lo}, {hi}]")
+    phase_wall("compiled", t0)
+
+
+def run_dryrun(torch, dev, smi):
+    """``run_pair`` on the 16 x 16 production mesh (the fake backend, each
+    pair in a subprocess of its own, all at once): per-device memory,
+    FLOPs, bytes and collective bytes; whether the per-device bytes fit
+    the card."""
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for arch, shape in DRYRUN_PAIRS:
+        out = out_dir / f"{arch}_{shape}.jsonl"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--out", str(out)]
+        with open(out.with_suffix(".log"), "w") as log:
+            procs[(arch, shape)] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                                     stderr=subprocess.STDOUT),
+                                    out, time.perf_counter())
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    records = []
+    try:
+        for (arch, shape), (proc, out, w0) in procs.items():
+            proc.wait(timeout=DRYRUN_TIMEOUT_S)
+            rec = json.loads(out.read_text().splitlines()[-1]) if out.exists() else {}
+            rec["wall_s"] = time.perf_counter() - w0
+            records.append(rec)
+            ok = proc.returncode == 0 and rec.get("ok") is True
+            if not ok:
+                emit("dryrun", arch=arch, shape=shape, ok=False, returncode=proc.returncode,
+                     error=rec.get("error"),
+                     log=out.with_suffix(".log").read_text()[-2000:])
+            check(ok, f"dryrun: {arch} x {shape} failed")
+            mem = rec["memory"]
+            per_device = (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+                          + mem["temp_size_in_bytes"])
+            coll = sum(rec["collective_bytes"].values())
+            numbers = [rec["flops"], rec["bytes_accessed"], coll, per_device, *mem.values()]
+            emit("dryrun", arch=arch, shape=shape, mesh=rec["mesh"], kind=rec["kind"],
+                 depth=rec["depth"], traced_depth=rec["traced_depth"], attention=rec.get("attention"),
+                 flops_per_device=rec["flops"], bytes_per_device=rec["bytes_accessed"],
+                 collective_bytes=rec["collective_bytes"], memory=mem,
+                 per_device_bytes=per_device, card_bytes=card_bytes,
+                 fits_card=per_device <= card_bytes, seconds=rec["compile_s"],
+                 wall_s=rec["wall_s"], host="this run's CPU (fake tensors)", nvidia_smi=smi)
+            check(all(math.isfinite(v) and v >= 0 for v in numbers) and rec["flops"] > 0,
+                  f"dryrun: {arch} x {shape} counted {numbers}")
+            check(rec["kind"] != "train" or coll > 0,
+                  f"dryrun: the train pair {arch} x {shape} shows no collective traffic")
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    per_pair = statistics.mean(r["compile_s"] for r in records)
+    emit("dryrun", what="the 40-pair sweep (10 archs x 4 shapes, 16 x 16) is not run here",
+         pairs_run=len(records), mean_pair_s=per_pair, sweep_estimate_s=40 * per_pair,
+         command="PYTHONPATH=src python -m repro_torch.launch.dryrun --out dryrun_16x16.jsonl")
+    phase_wall("dryrun", t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2588,7 +2769,8 @@ def main() -> int:
     agg_launches += run_baselines(torch, n_main, fedleo_hours)
     agree_baselines(torch)
     agg_launches += run_unet(torch, args, smi)
-    agg_launches += run_fleet(torch, fedleo_hours)
+    fleet_launches, fleet_hours = run_fleet(torch, fedleo_hours)
+    agg_launches += fleet_launches
     agg_launches += run_multitenant(torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2626,6 +2808,14 @@ def main() -> int:
                     dataclasses.replace(get_config("gemma-7b"), num_layers=GEMMA_TRAIN_UNITS),
                     cut=f"depth 28 -> {GEMMA_TRAIN_UNITS} units (28 need ~137 GB of Adam state)")
     train_agree(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 24-26. the launch layer: calibrated step times on the card (and the
+    # hetero fleet priced by them), the roofline's compiled mode, the dry run
+    agg_launches += run_calibrate(torch, dev, smi, fleet_hours)
+    run_compiled(torch)
+    run_dryrun(torch, dev, smi)
 
     agg_row = agg_timed[(SCENARIO["sats_per_plane"], n_main, torch.float32, "dirty")]
     flash_row = flash_timed["causal"]

@@ -1,2 +1,4 @@
-"""Launch layer: the training driver (``train.py``).  The mesh, sharding,
-dry-run and calibration modules of the reference are not ported yet."""
+"""Launch layer: production meshes (``mesh``), sharding rules
+(``sharding``), abstract inputs (``specs``), the dry run (``dryrun``),
+measured calibration (``calibrate``) and the training driver
+(``train``)."""

@@ -68,6 +68,15 @@ def capacity(cfg: MoEConfig, n: int) -> int:
     return max(1, int(cfg.capacity_factor * n * cfg.top_k / cfg.num_experts))
 
 
+def expert_counts(idx: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Tokens per expert, int64 (E,): ``torch.bincount(idx,
+    minlength=E)`` with a shape that does not depend on the data, so
+    the count traces under ``FakeTensorMode`` and DTensor (out of place:
+    DTensor has no in-place ``scatter_add_`` into a plain tensor)."""
+    counts = torch.zeros((num_experts,), dtype=torch.int64, device=idx.device)
+    return counts.scatter_add(0, idx.long(), torch.ones_like(idx, dtype=torch.int64))
+
+
 def route(params: Dict, xt: torch.Tensor, cfg: MoEConfig):
     """Routing and slot assignment of tokens ``xt`` (n, d): (gate values
     (n, k) float32, flat slots [(n,)] * k, valid masks [(n,)] * k, aux
@@ -84,23 +93,22 @@ def route(params: Dict, xt: torch.Tensor, cfg: MoEConfig):
     me = torch.mean(probs, dim=0)
     tokens_per_expert = torch.zeros((E,), dtype=torch.float32, device=xt.device)
     for j in range(k):
-        tokens_per_expert = tokens_per_expert + torch.bincount(
-            expert_idx[:, j], minlength=E).float()
+        tokens_per_expert = tokens_per_expert + expert_counts(expert_idx[:, j], E).float()
     aux_loss = cfg.router_aux_loss * E * torch.sum(me * (tokens_per_expert / n))
 
     counts = torch.zeros((E,), dtype=torch.int64, device=xt.device)
     arange_n = torch.arange(n, device=xt.device)
-    experts = torch.arange(E, device=xt.device)
     flats: List[torch.Tensor] = []
     valids: List[torch.Tensor] = []
     for j in range(k):
         idx_j = expert_idx[:, j]
         order = torch.argsort(idx_j, stable=True)
         sorted_e = idx_j[order]
-        starts = torch.searchsorted(sorted_e, experts)            # (E,)
+        counts_j = expert_counts(idx_j, E)
+        starts = torch.cumsum(counts_j, 0) - counts_j             # (E,) first sorted row
         pos_sorted = arange_n - starts[sorted_e] + counts[sorted_e]
         pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
-        counts = counts + torch.bincount(idx_j, minlength=E)
+        counts = counts + counts_j
         valid = pos < cap
         flats.append(idx_j * cap + torch.clamp(pos, max=cap - 1))
         valids.append(valid)

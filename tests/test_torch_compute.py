@@ -12,8 +12,10 @@ package.
     every client's eq. (11) time equal to the reference exactly.
   * The degenerate case: ``compute=None`` and the all-default profile
     give identical round times, events and metrics.
-  * The ``compiled`` and ``measured`` modes need ``repro_torch.launch``,
-    which is not ported: they raise, never price with the analytic mode.
+  * The ``compiled`` mode prices through the port's dry run (finite,
+    cached, linear in tokens; the fleet model uses it); ``measured``
+    times a smoke step where the caller names the device, and without a
+    card raises rather than time the CPU.
 """
 import jax
 import numpy as np
@@ -137,16 +139,62 @@ def test_costs_equal_reference_bit_for_bit(arch):
                 JC.arch_payload_bits(arch, bits_per_param=bits, smoke=smoke)
 
 
-@pytest.mark.parametrize("mode", ["compiled", "measured"])
-def test_compiled_and_measured_modes_raise(mode):
-    """Both modes need repro_torch.launch (not ported): they raise, and
-    never fall back to the analytic price."""
-    with pytest.raises(ModuleNotFoundError, match="repro_torch.launch"):
-        step_time_s(FAST, "train_4k", DEVICE_TIERS["orbital-gpu"], mode=mode)
-    fleet = FleetComputeModel(SatelliteComputeProfile.per_plane([FAST], mode=mode), 1)
-    with pytest.raises(ModuleNotFoundError, match="repro_torch.launch"):
+def test_compiled_mode_is_finite_cached_and_linear_in_tokens():
+    """``compiled_step_cost`` counts the smoke train step at 4 x 128 on a
+    one-device mesh and scales it by tokens: a smaller shape with the
+    same compile shape costs exactly its share of tokens."""
+    import dataclasses
+
+    from repro_torch.configs import base
+
+    small = dataclasses.replace(base.INPUT_SHAPES["train_4k"], name="_test_train_1k",
+                                seq_len=1024, global_batch=64)
+    base.INPUT_SHAPES[small.name] = small
+    try:
+        big = roofline.compiled_step_cost(FAST, "train_4k")
+        assert roofline.compiled_step_cost(FAST, "train_4k") is big        # cached
+        little = roofline.compiled_step_cost(FAST, small.name)
+    finally:
+        base.INPUT_SHAPES.pop(small.name)
+    assert all(np.isfinite(v) and v > 0 for v in (big.flops, big.hbm_bytes, big.tokens))
+    ratio = big.tokens / little.tokens
+    assert ratio == 16.0
+    assert big.flops == pytest.approx(ratio * little.flops, rel=1e-12)
+    assert big.hbm_bytes == pytest.approx(ratio * little.hbm_bytes, rel=1e-12)
+    tier = DEVICE_TIERS["orbital-gpu"]
+    assert step_time_s(FAST, "train_4k", tier, mode="compiled") == max(
+        big.flops / (tier.peak_flops * tier.mfu_fraction), big.hbm_bytes / tier.hbm_bytes_per_s)
+
+
+def test_fleet_prices_in_compiled_mode():
+    fleet = FleetComputeModel(SatelliteComputeProfile.per_plane([FAST, SLOW], mode="compiled"), 2)
+    analytic = FleetComputeModel(SatelliteComputeProfile.per_plane([FAST, SLOW]), 2)
+    for plane, arch in enumerate((FAST, SLOW)):
+        sps = fleet.seconds_per_sample(plane)
+        assert np.isfinite(sps) and sps > 0
+        assert sps != analytic.seconds_per_sample(plane)
+        assert sps == seconds_per_sample(arch, "train_4k", DEVICE_TIERS["orbital-gpu"],
+                                         mode="compiled")
+
+
+def test_calibration_times_a_smoke_step_on_the_named_device():
+    from repro_torch.launch.calibrate import measure_smoke_step_s
+
+    t = measure_smoke_step_s(FAST, seq_len=32, global_batch=2, iters=1, device="cpu")
+    assert np.isfinite(t) and t > 0
+
+
+def test_measured_mode_without_a_card_raises(monkeypatch):
+    """``measured`` times on the card; without one it raises, naming the
+    missing device, and never times the CPU in its place."""
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    roofline._measured_step_time_s.cache_clear()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        step_time_s(FAST, "train_4k", DEVICE_TIERS["orbital-gpu"], mode="measured")
+    fleet = FleetComputeModel(SatelliteComputeProfile.per_plane([FAST], mode="measured"), 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         fleet.seconds_per_sample(0)
-    assert roofline.compiled_step_cost.cache_info().currsize == 0
+    assert roofline._measured_step_time_s.cache_info().currsize == 0
 
 
 # --- fleet model ------------------------------------------------------------------

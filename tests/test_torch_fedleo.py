@@ -16,6 +16,7 @@ Tolerances:
   * accuracy: within 2 test samples.
 """
 import dataclasses
+import math
 
 import jax
 import numpy as np
@@ -201,10 +202,10 @@ def test_entry_points_default_to_cuda():
 
 
 def test_compute_model_is_not_ported_yet():
-    """What of the fleet compute model is not ported yet: its compiled
-    mode, which needs repro_torch.launch.  A strategy pricing a round with
-    it raises rather than falling back; the analytic mode is ported, so a
-    task and a strategy take ``compute=``."""
+    """The fleet compute model's modes on the port (the name dates from
+    before ``repro_torch.launch`` was ported): a task and a strategy take
+    ``compute=``, and a strategy prices a round in the compiled mode,
+    through the port's dry run, apart from the analytic price."""
     from repro_torch.compute import FleetComputeModel, SatelliteComputeProfile
 
     clients, test = _datasets(tdata)
@@ -216,9 +217,11 @@ def test_compute_model_is_not_ported_yet():
     assert make(fleet).compute is fleet
     assert T.FedLEO(make(), T.SimConfig(compute=SatelliteComputeProfile())).compute is not None
     compiled = SatelliteComputeProfile.per_plane(["mamba2-780m"], mode="compiled")
-    strat = T.FedLEO(make(), T.SimConfig(compute=compiled))
-    with pytest.raises(ModuleNotFoundError, match="repro_torch.launch"):
-        strat.train_time_s(make().clients_on_plane(0)[0])
+    analytic = SatelliteComputeProfile.per_plane(["mamba2-780m"])
+    client = make().clients_on_plane(0)[0]
+    t = T.FedLEO(make(), T.SimConfig(compute=compiled)).train_time_s(client)
+    assert math.isfinite(t) and t > 0
+    assert t != T.FedLEO(make(), T.SimConfig(compute=analytic)).train_time_s(client)
 
 
 def test_sim_config_fields_and_defaults_match_reference():

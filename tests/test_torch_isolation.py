@@ -11,7 +11,9 @@ package, and its copied numpy modules stay verbatim copies.
     decodes and trains smoke llama4, kimi-k2, internvl2 and seamless
     models (the moe, vlm and audio families); a fifth runs the training
     driver (``python -m repro_torch.launch.train``) in FedLEO mode on the
-    CPU with a checkpoint.
+    CPU with a checkpoint; a sixth imports the launch layer (mesh,
+    sharding, specs, dryrun, calibrate) and prices a step in the
+    roofline's ``compiled`` mode.
   * An AST scan of every module of the port and of ``chip_smoke.py``
     finds no import of jax or of the reference package.
   * Every copied module equals its reference file with the imports
@@ -274,3 +276,29 @@ def test_training_driver_runs_with_jax_and_reference_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ISOLATED-TRAIN-OK" in proc.stdout
     assert proc.stdout.count("[aggregated]") == 2
+
+
+_ISOLATED_LAUNCH = _ISOLATED_RUN[:_ISOLATED_RUN.index("import repro_torch")] + textwrap.dedent("""
+    from repro_torch.launch import calibrate, dryrun, mesh, sharding, specs
+    from repro_torch.compute import DEVICE_TIERS, roofline
+
+    cost = roofline.compiled_step_cost("mamba2-780m", "train_4k")
+    assert cost.flops > 0 and cost.hbm_bytes > 0
+    assert roofline.step_time_s("mamba2-780m", "train_4k", DEVICE_TIERS["orbital-gpu"],
+                                mode="compiled") > 0
+    assert calibrate.measure_smoke_step_s("mamba2-780m", seq_len=16, global_batch=2,
+                                          iters=1, device="cpu") > 0
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not loaded, loaded
+    print("ISOLATED-LAUNCH-OK")
+""")
+
+
+def test_compiled_mode_runs_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _ISOLATED_LAUNCH], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ISOLATED-LAUNCH-OK" in proc.stdout

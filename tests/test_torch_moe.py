@@ -315,3 +315,37 @@ def test_moe_train_step_moves_parameters():
     moe_old, moe_new = params["layers"]["block0"]["moe"], new.params["layers"]["block0"]["moe"]
     for name in ("router", "w_gate", "w_up", "w_down"):
         assert not torch.equal(moe_old[name], moe_new[name]), name
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_expert_counts_equal_bincount(seed):
+    """The fixed-shape count is ``bincount``'s, experts that get no token
+    included (E above the tokens' range, and a skewed draw)."""
+    rng = np.random.default_rng(seed)
+    for n, num_experts in ((1, 8), (37, 16), (200, 384)):
+        idx = torch.from_numpy(rng.integers(0, max(1, num_experts // 3), n))
+        counts = moe.expert_counts(idx, num_experts)
+        assert counts.dtype == torch.int64 and counts.shape == (num_experts,)
+        assert torch.equal(counts, torch.bincount(idx, minlength=num_experts))
+        assert int((counts == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_traces_under_fake_tensors(arch):
+    """Routing has no data-dependent shape: the smoke forward and a train
+    step run under ``FakeTensorMode`` (the dry run's abstract tensors)."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
+    from repro_torch.optim import get_optimizer
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, dtype=torch.float32, device="cpu")
+    with FakeTensorMode():
+        params = model.init(torch.Generator().manual_seed(0))
+        tokens = torch.zeros((2, 32), dtype=torch.int32)
+        logits, aux = model.forward(params, tokens)
+        opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+        state = tsteps.TrainState(params, opt.init(params), torch.zeros((), dtype=torch.int32))
+        new, metrics = tsteps.make_train_step(model, opt)(state, {"tokens": tokens})
+    assert isinstance(logits, FakeTensor) and logits.shape == (2, 32, cfg.vocab_size)
+    assert isinstance(metrics["loss"], FakeTensor)
