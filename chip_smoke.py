@@ -125,7 +125,16 @@ script exits non-zero without a result line:
                    and adafactor; then ``python -m repro_torch.launch.train
                    --smoke --fedleo`` on the card, its checkpoint restored
                    on the card equal to what it saved.
- 24. calibrate   — the launch layer: ``measure_smoke_step_s`` (a smoke-config
+ 24. examples    — the four example twins' ``main`` in this process on
+                   the card (``examples/*_torch.py``): quickstart and
+                   serve_decode as they are, sota_comparison with
+                   ``--fast``, train_arch at its default config (~126M
+                   parameters, 2 orbit replicas of 4 x 256 tokens, 200
+                   steps, tau 10): wall seconds and peak memory of each,
+                   train_arch's steps/s and loss from first to last (it
+                   must fall); the twins keep the reference examples'
+                   defaults, so no kernel launches.
+ 25. calibrate   — the launch layer: ``measure_smoke_step_s`` (a smoke-config
                    float32 train step of 4 x 128 tokens, min of 3) of each
                    of the 10 architectures on the card, with the card's
                    name and power limit; ``step_time_s(mode="measured")``
@@ -133,18 +142,21 @@ script exits non-zero without a result line:
                    ``fleet``'s run priced in ``measured`` mode (finite
                    round times, apart from the analytic fleet's; one K1
                    launch per aggregation).
- 25. compiled    — ``compiled_step_cost(arch, "train_4k")`` of the 10
+ 26. compiled    — ``compiled_step_cost(arch, "train_4k")`` of the 10
                    architectures: FLOPs and bytes counted on fake tensors
                    at 4 x 128 and scaled by tokens, the FLOPs held to the
                    CPU tests' band around the analytic 6 N D.
- 26. dryrun      — ``python -m repro_torch.launch.dryrun`` on the 16 x 16
+ 27. dryrun      — ``python -m repro_torch.launch.dryrun`` on the 16 x 16
                    production mesh (torch's fake process-group backend,
                    no card), one subprocess a pair, all at once: gemma-7b
                    train_4k, kimi-k2 prefill_32k, mamba2-780m decode_32k,
                    zamba2-1.2b train_4k, internvl2-26b prefill_32k and
                    seamless decode_32k; per-device memory, FLOPs, bytes
-                   and collective bytes, whether the per-device bytes fit
-                   the card; train pairs must show collective traffic.
+                   and collective bytes (the largest by shape), whether
+                   the per-device bytes fit the card, beside the
+                   reference's (``DRYRUN_REFERENCE``); train pairs must
+                   show collective traffic, and every pair that fits in
+                   the reference must fit in the port.
                    The 40-pair sweep is not run: its time is estimated
                    from the pairs'.
 
@@ -306,6 +318,37 @@ DRYRUN_PAIRS = [("gemma-7b", "train_4k"), ("kimi-k2-1t-a32b", "prefill_32k"),
                 ("mamba2-780m", "decode_32k"), ("zamba2-1.2b", "train_4k"),
                 ("internvl2-26b", "prefill_32k"), ("seamless-m4t-large-v2", "decode_32k")]
 DRYRUN_TIMEOUT_S = 480
+# profiled prefills: sessions tried for a profile that holds every kernel launched
+PROFILE_SESSIONS = 3
+# the example twins as phase ``examples`` runs them (train_arch at its default
+# ~126M config)
+EXAMPLES = [("quickstart_torch", []), ("sota_comparison_torch", ["--fast"]),
+            ("serve_decode_torch", []), ("train_arch_torch", [])]
+# the reference's dry run of the same pairs (``python -m repro.launch.dryrun
+# --arch A --shape S``: XLA's memory_analysis and the collective bytes of its
+# HLO on 512 host devices, jax 0.9.0), per device.  A device holds argument +
+# output + temp - alias bytes: XLA's aliased outputs reuse their arguments'
+# buffers (the port's dry run aliases nothing).
+DRYRUN_REFERENCE = {
+    ("gemma-7b", "train_4k"): {"argument": 402558984, "output": 400327224,
+                               "temp": 162695245592, "alias": 400195592,
+                               "collective": 182444633900},
+    ("kimi-k2-1t-a32b", "prefill_32k"): {"argument": 16536981504, "output": 655360,
+                                         "temp": 39167000600, "alias": 0,
+                                         "collective": 27528528000},
+    ("mamba2-780m", "decode_32k"): {"argument": 69620768, "output": 39032472,
+                                    "temp": 77843232, "alias": 38227968,
+                                    "collective": 23999552},
+    ("zamba2-1.2b", "train_4k"): {"argument": 55571784, "output": 52532616,
+                                  "temp": 262165534912, "alias": 52351304,
+                                  "collective": 333268803384},
+    ("internvl2-26b", "prefill_32k"): {"argument": 727370752, "output": 5923392,
+                                       "temp": 20182170472, "alias": 0,
+                                       "collective": 16442049792},
+    ("seamless-m4t-large-v2", "decode_32k"): {"argument": 2559192196, "output": 2420018544,
+                                              "temp": 5135115720, "alias": 2415919200,
+                                              "collective": 100486240},
+}
 
 
 def ptxas_summary(log: str) -> dict:
@@ -1303,7 +1346,29 @@ def time_flash(torch, dev, gen, flush, smi):
     return rows
 
 
-def profile_call(torch, fn, moe: bool = False):
+def profile_call(torch, fn, moe: bool = False, complete: bool = False):
+    """``profile_once``.  With ``complete``, the profile must hold a record
+    of every flash and SSD kernel the call launched (by the wrappers'
+    counts during its session): a session that dropped some (the
+    profiler can miss a ctypes library's kernels, a few or all of them,
+    ``tools/profiler_probe.py``) is run again, up to ``PROFILE_SESSIONS``
+    sessions, and the profile carries ``sessions``, the calls made, which
+    the caller counts.  The checks read the complete profile as any."""
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.ssd import ssd_scan
+
+    for sessions in range(1, PROFILE_SESSIONS + 1):
+        before = flash_attention.launches, ssd_scan.launches
+        prof = profile_once(torch, fn, moe)
+        flash, ssd = flash_attention.launches - before[0], ssd_scan.launches - before[1]
+        if not complete or prof.get("device_busy_ms") == "not measured" or (
+                prof["flash_tc_launches"] + prof["flash_core_launches"] >= flash
+                and prof["ssd_tc_launches"] + prof["ssd_core_launches"] >= ssd):
+            break
+    return dict(prof, sessions=sessions) if complete else prof
+
+
+def profile_once(torch, fn, moe: bool = False):
     """One call of ``fn`` under torch.profiler: its wall time, the
     device's busy share, and device time split into the flash kernels
     and the SSD kernels (tensor-core and CUDA-core apart), the library's
@@ -1459,8 +1524,9 @@ def serve(torch, dev, smi):
             ms = statistics.median(times)
             prof = {}
             if window is None and s == SERVE_SEQ:
-                prof = profile_call(torch, lambda: step(params, {"tokens": tokens}))
-                prefill_calls += 1
+                prof = profile_call(torch, lambda: step(params, {"tokens": tokens}),
+                                    complete=True)
+                prefill_calls += prof["sessions"]
                 check_tc_only(prof, cfg.num_layers, "gemma-7b prefill")
             emit("prefill", window=window, batch=SERVE_BATCH, seq=s, ms=ms, ms_all=times,
                  tokens_per_s=SERVE_BATCH * s / (ms * 1e-3), nvidia_smi=smi, profile=prof)
@@ -1700,8 +1766,9 @@ def ssm_serve(torch, dev, smi):
             check(bool(torch.isfinite(logits.float()).all()), "non-finite prefill logits")
             prof = {}
             if s == SERVE_SEQ:
-                prof = profile_call(torch, lambda: step(params, {"tokens": tokens}))
-                calls += 1
+                prof = profile_call(torch, lambda: step(params, {"tokens": tokens}),
+                                    complete=True)
+                calls += prof["sessions"]
                 check_tc_only(prof, attn_uses, f"{arch} prefill")
                 check_ssd_tc_only(prof, cfg.num_layers, f"{arch} prefill")
             ms = statistics.median(times)
@@ -1930,9 +1997,9 @@ def zoo_prefill(torch, model, params, batch, smi, phase, per_call, moe=False):
     logits, times = timed_prefill(torch, step, params, batch)
     check(logits.shape == (SERVE_BATCH, cfg.vocab_size), f"logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits.float()).all()), f"{cfg.name}: non-finite prefill logits")
-    prof = profile_call(torch, lambda: step(params, batch), moe=moe)
+    prof = profile_call(torch, lambda: step(params, batch), moe=moe, complete=True)
     check_tc_only(prof, per_call, f"{cfg.name} prefill")
-    calls = 5
+    calls = 4 + prof["sessions"]
     fields = {}
     if moe:
         fields["dropped_share"] = moe_drop_share(torch, lambda: step(params, batch))
@@ -2553,6 +2620,74 @@ def train_agree(torch, dev):
     phase_wall("train_agree", t0)
 
 
+def _example(name: str):
+    """``examples/<name>.py`` as a module (its ``main(argv)`` runs it)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}", ROOT / "examples"
+                                                  / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_examples(torch, dev, smi):
+    """The four example twins' ``main`` in this process, on the card:
+    quickstart and serve_decode as they are, sota_comparison with
+    ``--fast``, train_arch at its default config (~126M parameters, 200
+    steps, 2 orbits of 4 x 256 tokens, tau 10).  Each keeps the
+    reference example's defaults, so none launches a kernel: the counts
+    are read around them and must not move."""
+    from repro_torch.kernels.aggregate import aggregate_flat
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.ssd import ssd_scan
+
+    t0 = time.perf_counter()
+    counts = (aggregate_flat.launches, flash_attention.launches, ssd_scan.launches)
+    walls = {}
+    for name, argv in EXAMPLES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        w0 = time.perf_counter()
+        out = _example(name).main(argv)
+        torch.cuda.synchronize(dev)
+        walls[name] = time.perf_counter() - w0
+        peak = torch.cuda.max_memory_allocated(dev)
+        fields = dict(example=f"examples/{name}.py", argv=argv, wall_s=walls[name],
+                      max_memory_allocated_bytes=peak, nvidia_smi=smi)
+        if name == "quickstart_torch":
+            fields.update(rounds=len(out.history), final_accuracy=out.final_accuracy,
+                          sim_hours=out.final_time_hours)
+            check(len(out.history) == 4 and out.final_time_hours > 0,
+                  f"quickstart twin: {len(out.history)} rounds")
+        elif name == "sota_comparison_torch":
+            fields.update(methods={k: {"accuracy": r.final_accuracy, "sim_hours":
+                                       r.final_time_hours, "rounds": len(r.history)}
+                                   for k, r in out.items()})
+            check(len(out) == 6 and all(r.history for r in out.values()),
+                  "sota_comparison twin: a method ran no round")
+        elif name == "serve_decode_torch":
+            fields.update(generated={k: list(v.shape) for k, v in out.items()})
+            check(all(tuple(v.shape) == (4, 32) for v in out.values()),
+                  "serve_decode twin: generated shapes")
+        else:
+            fields.update(params=out["params"], steps=out["steps"],
+                          steps_per_s=out["steps_per_s"], first_loss=out["first_loss"],
+                          last_loss=out["last_loss"], tail_loss=out["tail_loss"],
+                          printed=out["printed"], seconds=out["seconds"])
+            check(out["params"] > 100e6 and out["steps"] == 200,
+                  f"train_arch twin: {out['params']} parameters, {out['steps']} steps")
+            check(out["last_loss"] < out["first_loss"] and math.isfinite(out["tail_loss"]),
+                  f"train_arch twin: loss {out['first_loss']} -> {out['last_loss']}")
+        emit("examples", **fields)
+    after = (aggregate_flat.launches, flash_attention.launches, ssd_scan.launches)
+    emit("examples", what="kernel launches by the twins (K1, K2, K3)",
+         launches=[b - a for a, b in zip(counts, after)], walls=walls)
+    check(after == counts, f"the example twins launched kernels: {counts} -> {after}")
+    phase_wall("examples", t0)
+
+
 def run_calibrate(torch, dev, smi, analytic_hours):
     """``measure_smoke_step_s`` of every architecture on the card, the
     roofline's ``measured`` mode equal to its token-scaled measurement,
@@ -2674,20 +2809,37 @@ def run_dryrun(torch, dev, smi):
             check(ok, f"dryrun: {arch} x {shape} failed")
             mem = rec["memory"]
             per_device = (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
-                          + mem["temp_size_in_bytes"])
+                          + mem["temp_size_in_bytes"] - mem["alias_size_in_bytes"])
             coll = sum(rec["collective_bytes"].values())
             numbers = [rec["flops"], rec["bytes_accessed"], coll, per_device, *mem.values()]
+            ref = DRYRUN_REFERENCE[(arch, shape)]
+            ref_bytes = ref["argument"] + ref["output"] + ref["temp"] - ref["alias"]
+            fits, ref_fits = per_device <= card_bytes, ref_bytes <= card_bytes
             emit("dryrun", arch=arch, shape=shape, mesh=rec["mesh"], kind=rec["kind"],
-                 depth=rec["depth"], traced_depth=rec["traced_depth"], attention=rec.get("attention"),
+                 depth=rec["depth"], traced_depth=rec["traced_depth"],
+                 attention=rec.get("attention"), loss=rec.get("loss"),
+                 experts=rec.get("experts"), torch_flattens_sharded_dims=rec.get(
+                     "dtensor_flattens_sharded_dims"),
                  flops_per_device=rec["flops"], bytes_per_device=rec["bytes_accessed"],
-                 collective_bytes=rec["collective_bytes"], memory=mem,
-                 per_device_bytes=per_device, card_bytes=card_bytes,
-                 fits_card=per_device <= card_bytes, seconds=rec["compile_s"],
-                 wall_s=rec["wall_s"], host="this run's CPU (fake tensors)", nvidia_smi=smi)
+                 collective_bytes=rec["collective_bytes"],
+                 top_collectives=rec.get("top_collectives"), memory=mem,
+                 per_device_bytes=per_device, card_bytes=card_bytes, fits_card=fits,
+                 reference_per_device_bytes=ref_bytes, reference_fits_card=ref_fits,
+                 verdict_matches=fits == ref_fits,
+                 per_device_over_reference=per_device / ref_bytes,
+                 reference_collective_bytes=ref["collective"],
+                 collective_over_reference=coll / ref["collective"],
+                 seconds=rec["compile_s"], wall_s=rec["wall_s"],
+                 host="this run's CPU (fake tensors)", nvidia_smi=smi)
             check(all(math.isfinite(v) and v >= 0 for v in numbers) and rec["flops"] > 0,
                   f"dryrun: {arch} x {shape} counted {numbers}")
             check(rec["kind"] != "train" or coll > 0,
                   f"dryrun: the train pair {arch} x {shape} shows no collective traffic")
+            # the port fits wherever the reference does (a verdict apart from
+            # the reference's is then one where the port holds less than it)
+            check(fits or not ref_fits,
+                  f"dryrun: {arch} x {shape} needs {per_device:.4g} B a device, over the "
+                  f"card's {card_bytes}, where the reference's {ref_bytes:.4g} B fit")
     finally:
         for proc, _, _ in procs.values():
             if proc.poll() is None:
@@ -2811,7 +2963,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 24-26. the launch layer: calibrated step times on the card (and the
+    # 24. the four example twins on the card
+    run_examples(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 25-27. the launch layer: calibrated step times on the card (and the
     # hetero fleet priced by them), the roofline's compiled mode, the dry run
     agg_launches += run_calibrate(torch, dev, smi, fleet_hours)
     run_compiled(torch)

@@ -24,11 +24,23 @@ every iteration of a Python loop (chunked attention's chunk pairs, the
 layer stack), where XLA's cost model counts a loop's body once: the
 port's FLOPs read 1.4-1.7x XLA's at the smoke shape.
 
+On a sharded mesh the step runs the plan a sharded program runs, not
+DTensor's replicated defaults: parameters are all-gathered over the
+FSDP axes layer by layer (``_FsdpModel``); attention runs on each
+device's query heads and the kv heads they read, KV caches stay as
+``cache_specs`` shards them; the head and the cross-entropy run on each
+device's vocabulary shard; MoE experts run where they are held, each
+device filling buffers for its experts from its data shard's tokens
+(``_substituted``).  The record names each route.
+
 For each pair this prints and records what the reference does
 (``compiled.memory_analysis()``, ``compiled.cost_analysis()`` and the
 collective bytes parsed from ``compiled.as_text()``, which writes one
-HLO-like line per collective).  The port's steps run out of place, so
-nothing aliases: ``donate`` is accepted, never modelled.
+HLO-like line per collective), and the three collectives (kind, dtype,
+per-device shape) that move the most bytes.  The port's steps run out
+of place, so nothing aliases: ``donate`` is accepted, never modelled.
+The fake process group has no all-to-all: DTensor sends one as an
+all-gather and a chunk, and it is counted so.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch mistral-large-123b --shape train_4k
@@ -151,6 +163,7 @@ class _Counter(TorchDispatchMode):
         self.sizes: Dict[int, int] = {}
         self.live = 0
         self.peak = 0
+        self.largest = 0
 
     @contextlib.contextmanager
     def repeat(self, n: int):
@@ -178,6 +191,7 @@ class _Counter(TorchDispatchMode):
             self.sizes[key] = storage.nbytes()
             self.live += self.sizes[key]
             self.peak = max(self.peak, self.live)
+            self.largest = max(self.largest, self.sizes[key])
         self.refs[key] += 1
         weakref.finalize(t, self._release, key)
 
@@ -343,17 +357,348 @@ def _counted_chunked_attention(counter: _Counter):
     return chunked_attention
 
 
-@contextlib.contextmanager
-def _loops_counted(counter: _Counter):
-    """Chunked attention with its loops counted, not run (see above)."""
-    from repro_torch.models import layers
+# --- per-device regions -----------------------------------------------------------------
+# Where DTensor's own plan for an operation replicates work or memory that a
+# sharded program keeps on its shards, the dry run runs that operation on each
+# device's local shards instead (``to_local``, plain operations, ``from_local``)
+# and writes the collectives it needs itself: attention on the device's query
+# heads and the kv heads they read, the cross-entropy on the logits' vocab
+# shard, and the MoE experts on the devices that hold them.  The local regions
+# never ask DTensor to flatten a batch and a head dim both sharded, which some
+# torch versions refuse.  The values are never computed (fake tensors), so the
+# regions are held to the plain functions by their shapes and placements.
+def _mesh_dims(t) -> Tuple[List[str], Optional[int]]:
+    """The mesh's dim names and the index of its "model" dim (or None)."""
+    names = list(t.device_mesh.mesh_dim_names)
+    return names, (names.index("model") if "model" in names else None)
 
-    original = layers.chunked_attention
-    layers.chunked_attention = _counted_chunked_attention(counter)
+
+def _model_size_and_rank(t) -> Tuple[int, int]:
+    _, mi = _mesh_dims(t)
+    if mi is None:
+        return 1, 0
+    return t.device_mesh.size(mi), t.device_mesh.get_local_rank(mi)
+
+
+def _batch_placements(t, model) -> list:
+    """``t``'s placements with a Shard of dim 0 kept on every mesh dim but
+    "model", Replicate elsewhere, and ``model`` on the model dim."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names, mi = _mesh_dims(t)
+    out = [p if isinstance(p, Shard) and p.dim == 0 and i != mi else Replicate()
+           for i, p in enumerate(t.placements)]
+    if mi is not None:
+        out[mi] = model
+    return out
+
+
+def _to_local(t, placements, grad_placements=None) -> torch.Tensor:
+    """``t`` laid out as ``placements`` (a redistribution where it is not),
+    as its local shard; its gradient comes back as ``grad_placements``."""
+    if list(t.placements) != list(placements):
+        t = t.redistribute(t.device_mesh, placements)
+    return t.to_local(grad_placements=grad_placements or placements)
+
+
+def _from_local(local: torch.Tensor, mesh, placements, shape):
+    """A DTensor of global ``shape`` from even local shards (their
+    strides kept)."""
+    from torch.distributed.tensor import DTensor
+
+    out = DTensor.from_local(local, mesh, placements, run_check=False)
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"local {tuple(local.shape)} as {placements} is "
+                         f"{tuple(out.shape)}, not {tuple(shape)}")
+    return out
+
+
+def _local_rows(x, like, placements) -> torch.Tensor:
+    """The local shard of ``x`` laid out as ``placements`` on ``like``'s
+    mesh: a DTensor redistributed, a plain (replicated) tensor split
+    without moving a byte."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(x, DTensor):
+        return _to_local(x, placements)
+    whole = _from_local(x, like.device_mesh, [Replicate()] * len(placements), x.shape)
+    return whole.redistribute(like.device_mesh, placements).to_local()
+
+
+def _reduce_over_model(local: torch.Tensor, like, op: str = "sum") -> torch.Tensor:
+    """``local``'s sum (or max) over the model dim of ``like``'s mesh,
+    an all-reduce; ``local`` is laid out as ``like``'s batch."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    names, mi = _mesh_dims(like)
+    if mi is None or like.device_mesh.size(mi) == 1:
+        return local
+    partial = _batch_placements(like, Partial(op))
+    whole = _from_local(local, like.device_mesh, partial, _global_shape(local, like, partial))
+    return _to_local(whole, _batch_placements(like, Replicate()))
+
+
+def _global_shape(local: torch.Tensor, like, placements) -> Tuple[int, ...]:
+    from torch.distributed.tensor import Shard
+
+    shape = list(local.shape)
+    for p, n in zip(placements, like.device_mesh.shape):
+        if isinstance(p, Shard):
+            shape[p.dim] *= n
+    return tuple(shape)
+
+
+def regroups(num_heads: int, num_kv: int, model: int) -> bool:
+    """Whether attention runs on each device's query heads on a model
+    axis of ``model`` devices: the heads split evenly over it, and each
+    device's heads fill whole kv groups or lie inside one."""
+    if num_heads % model:
+        return False
+    local, per = num_heads // model, num_heads // num_kv
+    return local % per == 0 or per % local == 0
+
+
+def _regrouped_locals(q, k, v):
+    """q, k, v as each device's local query heads and the kv heads they
+    read, where ``regroups`` (else whole over the model dim): (q, k, v,
+    query heads per kv head, q's placements).  The kv heads split over
+    the model dim too where they divide by it, else each device slices
+    its groups from them whole."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    m, rank = _model_size_and_rank(q)
+    _, mi = _mesh_dims(q)
+    h, g = q.shape[2], k.shape[2]
+    split = regroups(h, g, m)
+    q_pl = _batch_placements(q, Shard(2) if split else Replicate())
+    kv_pl = _batch_placements(q, Shard(2) if split and g % m == 0 else Replicate())
+    # a kv head read by several devices' queries takes their gradients' sum
+    kv_grad = list(kv_pl)
+    if mi is not None and not isinstance(kv_pl[mi], Shard):
+        kv_grad[mi] = Partial()
+    ql = _to_local(q, q_pl)
+    kl, vl = (_to_local(t, kv_pl, kv_grad) if isinstance(t, DTensor) else _local_rows(t, q, kv_pl)
+              for t in (k, v))
+    per = h // g
+    if split and g % m:
+        local = h // m
+        lo, n = rank * local // per, max(1, local // per)
+        kl, vl, per = kl[:, :, lo:lo + n], vl[:, :, lo:lo + n], local // n
+    return ql, kl, vl, per, q_pl
+
+
+def _regrouped_chunked(fn):
+    """``chunked_attention`` on each device's query heads (``fn`` on
+    plain tensors)."""
+    from torch.distributed.tensor import DTensor
+
+    def chunked_attention(q, k, v, q_per_kv, *args, **kwargs):
+        if not isinstance(q, DTensor):
+            return fn(q, k, v, q_per_kv, *args, **kwargs)
+        ql, kl, vl, per, q_pl = _regrouped_locals(q, k, v)
+        out = fn(ql, kl, vl, per, *args, **kwargs)
+        return _from_local(out, q.device_mesh, q_pl, q.shape)
+
+    return chunked_attention
+
+
+def _regrouped_scores(fn):
+    """``attention_scores`` on each device's shards: on its query heads
+    and the kv heads they read, or, where the kv cache splits its head
+    dim over the model dim (``cache_specs``), on its slice of every head
+    dim, the logits summed over the model dim before the softmax."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def attention_scores(q, k, v, mask, q_per_kv, logit_soft_cap=None):
+        if not isinstance(q, DTensor):
+            return fn(q, k, v, mask, q_per_kv, logit_soft_cap)
+        _, mi = _mesh_dims(q)
+        hd_split = (mi is not None and isinstance(k, DTensor)
+                    and isinstance(k.placements[mi], Shard) and k.placements[mi].dim == 3)
+        if not hd_split:
+            ql, kl, vl, per, q_pl = _regrouped_locals(q, k, v)
+            ml = _local_rows(mask, q, _batch_placements(q, Replicate()))
+            out = fn(ql, kl, vl, ml, per, logit_soft_cap)
+            return _from_local(out, q.device_mesh, q_pl, q.shape)
+        pl = _batch_placements(q, Shard(3))
+        ql, kl, vl = _to_local(q, pl), _to_local(k, pl), _to_local(v, pl)
+        ml = _local_rows(mask, q, _batch_placements(q, Replicate()))
+        b, sq, h, hd = ql.shape
+        g = kl.shape[2]
+        partial = torch.einsum("bqgph,bkgh->bgpqk", ql.reshape(b, sq, g, h // g, hd), kl)
+        logits = _reduce_over_model(partial.float(), q).to(q.dtype) / math.sqrt(q.shape[-1])
+        if logit_soft_cap is not None:
+            logits = logit_soft_cap * torch.tanh(logits / logit_soft_cap)
+        logits = logits.masked_fill(~ml[:, None, None], torch.finfo(logits.dtype).min)
+        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        out = torch.einsum("bgpqk,bkgh->bqgph", probs, vl).reshape(b, sq, h, hd)
+        # the output projection contracts heads and head dim together:
+        # hand it the heads split (a new token's worth)
+        m = _model_size_and_rank(q)[0]
+        heads = _batch_placements(q, Shard(2) if regroups(h, g, m) else Replicate())
+        return _from_local(out, q.device_mesh, pl, q.shape).redistribute(q.device_mesh, heads)
+
+    return attention_scores
+
+
+def _loss_parallel(fn):
+    """``lm_loss`` on the logits' local shards (batch over the data dims,
+    vocabulary over the model dim): each device's max and sum of
+    exponentials over its vocabulary slice, and its targets' logits where
+    its slice holds them, summed over the model dim; the mean over the
+    batch dims.  No device holds more than its shard or its gradient."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    def lm_loss(logits, tokens, num_prefix: int = 0):
+        if not isinstance(logits, DTensor):
+            return fn(logits, tokens, num_prefix)
+        if num_prefix:
+            logits = logits[:, num_prefix:]
+        m, rank = _model_size_and_rank(logits)
+        vocab = logits.shape[-1]
+        split = vocab % m == 0
+        pl = _batch_placements(logits, Shard(2) if split else Replicate())
+        x = _to_local(logits[:, :-1], pl).float()
+        tgt = _local_rows(tokens, logits, _batch_placements(logits, Replicate()))
+        tgt = tgt[:, 1:].long()
+        with torch.no_grad():
+            top = x.amax(dim=-1, keepdim=True)
+            if split:
+                top = _reduce_over_model(top, logits, "max")
+        sumexp = torch.exp(x - top).sum(dim=-1)
+        lo, width = (rank * (vocab // m), vocab // m) if split else (0, vocab)
+        held = (tgt >= lo) & (tgt < lo + width)
+        picked = torch.gather(x, -1, torch.clamp(tgt - lo, 0, width - 1)[..., None])[..., 0]
+        picked = torch.where(held, picked, torch.zeros_like(picked))
+        if split:
+            sumexp = _reduce_over_model(sumexp, logits)
+            picked = _reduce_over_model(picked, logits)
+        nll = (torch.log(sumexp) + top[..., 0] - picked).sum() / (logits.shape[0] * x.shape[1])
+        over_batch = [Partial() if isinstance(p, Shard) else Replicate()
+                      for p in _batch_placements(logits, Replicate())]
+        loss = _from_local(nll, logits.device_mesh, over_batch, ())
+        return loss.redistribute(logits.device_mesh, [Replicate()] * len(over_batch))
+
+    return lm_loss
+
+
+def _expert_parallel(fn):
+    """``apply_moe`` with each device's experts on that device: every
+    device routes its data shard's tokens (the capacity is the shard's,
+    as GShard's groups take it), fills buffers (E / model, cap, d) for the
+    experts it holds, runs them and combines their outputs, and runs its
+    slice of the shared expert's hidden units; the output is the sum over
+    the model dim.  Where the experts do not split over the model dim,
+    every device runs them all."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.models import moe
+
+    def apply_moe(params, x, cfg, activation: str = "silu"):
+        if not isinstance(x, DTensor):
+            return fn(params, x, cfg, activation)
+        act = torch.nn.functional.silu if activation == "silu" else moe._gelu_tanh
+        m, rank = _model_size_and_rank(x)
+        names, mi = _mesh_dims(x)
+        n = len(names)
+        E = cfg.num_experts
+        split = E % m == 0 and m > 1          # the output is a sum over the model dim
+        held, lo = (E // m, rank * (E // m)) if split else (E, 0)
+        x_pl = _batch_placements(x, Replicate())
+        batch = [i for i, p in enumerate(x_pl) if isinstance(p, Shard)]
+
+        def weights(t, model, model_grad=None):
+            """``t`` whole over the data dims, ``model`` on the model dim; its
+            gradient the data shards' sum."""
+            pl = [Replicate()] * n
+            grad = [Partial() if i in batch else Replicate() for i in range(n)]
+            if mi is not None:
+                pl[mi], grad[mi] = model, model_grad or model
+            return _to_local(t, pl, grad)
+
+        x_grad = list(x_pl)
+        if split:
+            x_grad[mi] = Partial()
+        xl = _to_local(x, x_pl, x_grad)
+        b, s, d = xl.shape
+        xt = xl.reshape(b * s, d)
+        router = weights(params["router"], Replicate(), Partial())
+        gate_vals, flats, valids, aux, cap = moe.route({"router": router}, xt, cfg)
+        if split:
+            valids = [valid & (flat >= lo * cap) & (flat < (lo + held) * cap)
+                      for flat, valid in zip(flats, valids)]
+            flats = [torch.clamp(flat - lo * cap, 0, held * cap - 1) for flat in flats]
+        wg, wu, wd = (weights(params[k], Shard(0) if split else Replicate())
+                      for k in ("w_gate", "w_up", "w_down"))
+        ex_in = moe.dispatch(xt, flats, valids, held, cap)
+        gate = act(torch.bmm(ex_in, wg.to(xt.dtype)))
+        up = torch.bmm(ex_in, wu.to(xt.dtype))
+        ex_out = torch.bmm(gate * up, wd.to(xt.dtype)).reshape(held * cap, d)
+        out = moe.combine(ex_out, gate_vals, flats, valids)
+        if "shared" in params:
+            sh = params["shared"]
+            # the shared expert's hidden units split over the model dim with
+            # the experts; where they cannot, the whole of it on model rank 0
+            hidden = split and sh["w_gate"].shape[1] % m == 0
+            col, row = (Shard(1), Shard(0)) if hidden else (Replicate(), Replicate())
+            g = act(xt @ weights(sh["w_gate"], col).to(xt.dtype))
+            u = xt @ weights(sh["w_up"], col).to(xt.dtype)
+            y = (g * u) @ weights(sh["w_down"], row, Partial() if split else None).to(xt.dtype)
+            out = out + (y if hidden or not split or rank == 0 else torch.zeros_like(y))
+        out_pl = list(x_pl)
+        if split:
+            out_pl[mi] = Partial()
+        out = _from_local(out.reshape(b, s, d), x.device_mesh, out_pl, x.shape)
+        shards = math.prod(x.device_mesh.size(i) for i in batch)
+        aux_pl = [Partial() if i in batch else Replicate() for i in range(n)]
+        aux = _from_local(aux / shards, x.device_mesh, aux_pl, ())
+        return out, aux.redistribute(x.device_mesh, [Replicate()] * n)
+
+    return apply_moe
+
+
+def _vocab_parallel_head(fn):
+    """``Transformer._lm_head`` taking the residual stream whole over
+    the model dim (its batch split as it comes), so that the product
+    with the head's vocabulary shard leaves each device its logits'
+    vocabulary shard, as the loss-parallel cross-entropy reads them."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def _lm_head(self, params, x):
+        if isinstance(x, DTensor):
+            x = x.redistribute(x.device_mesh, _batch_placements(x, Replicate()))
+        return fn(self, params, x)
+
+    return _lm_head
+
+
+@contextlib.contextmanager
+def _substituted(counter: _Counter, count_loops: bool, sharded: bool):
+    """The step's functions that the dry run replaces for the duration of
+    one run: chunked attention with its loops counted, not run (without
+    autograd), and, on a sharded mesh, the per-device regions above and
+    the ``Transformer``'s vocabulary-parallel head (the SSM families keep
+    DTensor's plan: torch 2.11's DTensor cannot run their scan's backward
+    with the residual stream laid out so)."""
+    from repro_torch.models import layers, transformer
+    from repro_torch.train import steps
+
+    chunked = _counted_chunked_attention(counter) if count_loops else layers.chunked_attention
+    targets = [(layers, "chunked_attention", _regrouped_chunked(chunked) if sharded else chunked)]
+    if sharded:
+        targets += [(layers, "attention_scores", _regrouped_scores(layers.attention_scores)),
+                    (steps, "lm_loss", _loss_parallel(steps.lm_loss)),
+                    (transformer, "apply_moe", _expert_parallel(transformer.apply_moe))]
+        targets.append((transformer.Transformer, "_lm_head",
+                        _vocab_parallel_head(transformer.Transformer._lm_head)))
+    originals = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+    for owner, name, new in targets:
+        setattr(owner, name, new)
     try:
         yield
     finally:
-        layers.chunked_attention = original
+        for owner, name, original in originals:
+            setattr(owner, name, original)
 
 
 # --- lowered / compiled ---------------------------------------------------------------
@@ -377,6 +722,7 @@ class Compiled:
     memory: MemoryAnalysis
     collectives: Dict[Tuple[str, torch.dtype, Tuple[int, ...]], int]
     collective_counts: Dict[str, int]
+    largest_buffer_bytes: int = 0     # the largest storage the step allocated
 
     def cost_analysis(self) -> Dict[str, float]:
         return {"flops": float(self.flops), "bytes accessed": float(self.bytes_accessed)}
@@ -430,8 +776,8 @@ class Lowered:
         counter = _Counter(self.fake_mode, {t.untyped_storage()._cdata for t in arg_locals})
         propagation = (_dtensor_bookkeeping_uncounted(counter) if self.mesh.size > 1
                        else contextlib.nullcontext())
-        loops = _loops_counted(counter) if self.count_loops else contextlib.nullcontext()
-        with propagation, loops, self.fake_mode, CommDebugMode() as comm, counter, \
+        regions = _substituted(counter, self.count_loops, self.mesh.size > 1)
+        with propagation, regions, self.fake_mode, CommDebugMode() as comm, counter, \
                 use_mesh_compat(self.mesh):
             out = self.fn(*args)
         out_locals = [getattr(t, "_local_tensor", t) for t in _tensors(out)]
@@ -442,7 +788,8 @@ class Lowered:
             temp_size_in_bytes=max(counter.peak - out_bytes, 0),
         )
         counts = {str(k): int(v) for k, v in comm.get_comm_counts().items()}
-        return Compiled(counter.flops, counter.bytes, memory, counter.collectives, counts)
+        return Compiled(counter.flops, counter.bytes, memory, counter.collectives, counts,
+                        counter.largest)
 
 
 # --- what this torch's DTensor can run -----------------------------------------------
@@ -632,20 +979,11 @@ class _FsdpModel:
     Without it DTensor keeps the contraction dims sharded and gathers
     the activations instead, replicating the batch on every device.
 
-    With ``local_lookup``, the embedding table is a ``_LocalLookup``.
-    With ``attention_tp`` off, the attention projections are gathered
-    over the model axis too, and attention runs replicated over it:
-    where the query heads split over the model axis but the kv heads do
-    not (GQA: 48 heads in 8 groups on 16 devices), DTensor cannot regroup
-    the sharded heads into (groups, heads per group), and some torch
-    versions' DTensor cannot flatten a batch and a head dim both sharded
-    (the chunked attention's products)."""
+    With ``local_lookup``, the embedding table is a ``_LocalLookup``."""
 
-    def __init__(self, model, axes: Tuple[str, ...], attention_tp: bool,
-                 local_lookup: bool):
+    def __init__(self, model, axes: Tuple[str, ...], local_lookup: bool):
         self._model = model
         self._axes = tuple(axes)
-        self._attn_axes = self._axes if attention_tp else self._axes + ("model",)
         self._local_lookup = local_lookup
 
     def __getattr__(self, name):
@@ -656,14 +994,13 @@ class _FsdpModel:
         leaves = []
         for path, t in pairs:
             name = str(getattr(path[-1], "key", ""))
-            axes = self._attn_axes if name in ("wq", "wk", "wv", "wo") else self._axes
             top = str(getattr(path[0], "key", ""))
             if top in _STACKS:
-                leaves.append(_StackGather(t, axes))
+                leaves.append(_StackGather(t, self._axes))
             elif name == "table" and self._local_lookup:
-                leaves.append(_LocalLookup(t, axes))
+                leaves.append(_LocalLookup(t, self._axes))
             else:
-                leaves.append(_gather(t, axes))
+                leaves.append(_gather(t, self._axes))
         return tree_unflatten(treedef, leaves)
 
     def forward(self, params, *args, **kwargs):
@@ -673,22 +1010,11 @@ class _FsdpModel:
         return self._model.decode_step(self._params(params), *args, **kwargs)
 
 
-def _kv_replicated_over_model(cache_sds):
-    """The decode caches with their k and v leaves replicated over the
-    model axis, for attention that runs replicated over it."""
-    pairs, treedef = tree_flatten_with_path(cache_sds)
-    out = []
-    for path, spec in pairs:
-        name = str(getattr(path[-1], "name", getattr(path[-1], "key", "")))
-        if name in ("k", "v"):
-            sharding = spec.sharding
-            parts = [None if a == "model" else a for a in sharding.spec]
-            spec = ShapeDtypeStruct(spec.value, NamedSharding(sharding.mesh, P(*parts)))
-        out.append(spec)
-    return tree_unflatten(treedef, out)
-
-
 # --- per-pair dry run ------------------------------------------------------------------
+_REGROUPED = ("regrouped: each device's query heads and the kv heads they read, "
+              "KV caches as cache_specs shard them")
+
+
 def lower_pair(
     arch: str,
     shape_name: str,
@@ -701,10 +1027,10 @@ def lower_pair(
 ):
     """Build the right step for (arch, shape) on a mesh and its abstract
     inputs.  Returns (lowered, meta) where meta records what was lowered.
-    Attention runs tensor-parallel over the model axis where the kv heads
-    split over it and this torch's DTensor flattens sharded dims, else
-    replicated over it (``_FsdpModel``); ``donate`` is accepted, never
-    modelled (the port's steps run out of place)."""
+    On a sharded mesh attention runs on each device's query heads,
+    the loss on its vocabulary shard and the MoE experts where they are
+    held (``_substituted``); ``meta`` names each route.  ``donate`` is
+    accepted, never modelled (the port's steps run out of place)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     cfg = cfg or get_config(arch)
@@ -733,17 +1059,24 @@ def lower_pair(
     # the step's model gathers FSDP-sharded parameters layer by layer
     model_size = mesh.shape.get("model", 1)
     support = _adapt_dtensor(mesh) if mesh.size > 1 else _DTensorSupport(True, True)
-    attention_tp = support.flattens_sharded_dims and not (
-        cfg.num_kv_heads and cfg.num_kv_heads % model_size)
     step_model = model
     if mesh.size > 1 and param_axes:
-        step_model = _FsdpModel(model, param_axes, attention_tp,
+        step_model = _FsdpModel(model, param_axes,
                                 local_lookup=not support.embedding_backward)
         meta["embedding"] = ("DTensor lookup" if support.embedding_backward
                              else "gathered whole, looked up per device")
+    if mesh.size > 1:
+        meta["dtensor_flattens_sharded_dims"] = support.flattens_sharded_dims
         if cfg.family != "ssm":
-            meta["attention"] = ("tensor-parallel" if attention_tp
-                                 else "replicated over the model axis, KV caches too")
+            meta["attention"] = (_REGROUPED if regroups(cfg.num_heads, cfg.num_kv_heads,
+                                                        model_size)
+                                 else "whole over the model axis, run per device")
+        if shape.kind == "train":
+            meta["loss"] = "loss-parallel: the head and the cross-entropy on each device's vocabulary shard"
+        if cfg.moe is not None:
+            meta["experts"] = ("expert-parallel: buffers (E / model, capacity of the data "
+                               "shard, d)" if cfg.moe.num_experts % model_size == 0
+                               else "every expert on every device")
     fake = FakeTensorMode(allow_non_fake_inputs=True)
     with fake:
         if shape.kind == "train":
@@ -761,8 +1094,6 @@ def lower_pair(
         else:  # decode
             p_sds = speclib.params_specs(model, mesh, param_axes)
             cache_sds = speclib.cache_specs(model, cfg, shape, mesh, param_axes)
-            if step_model is not model and not attention_tp:
-                cache_sds = _kv_replicated_over_model(cache_sds)
             tok_sds = speclib.token_specs(cfg, shape, mesh)
             pos_sds = speclib.sds((), torch.int32, mesh)
             lowered = Lowered(make_serve_step(step_model), (p_sds, tok_sds, cache_sds, pos_sds),
@@ -803,8 +1134,10 @@ def _compile_at(arch, shape_name, mesh, cfg) -> Dict[str, Any]:
     lowered, meta = lower_pair(arch, shape_name, mesh, cfg=cfg)
     compiled = lowered.compile()
     mem = compiled.memory_analysis()
+    by_shape = {(kind, _HLO_DTYPES[dtype], shape): n
+                for (kind, dtype, shape), n in compiled.collectives.items()}
     return {"meta": meta, "flops": compiled.flops, "bytes": compiled.bytes_accessed,
-            "coll": collective_bytes(compiled.as_text()),
+            "coll": collective_bytes(compiled.as_text()), "by_shape": by_shape,
             "memory": {k: getattr(mem, k) for k in _MEM_ATTRS}}
 
 
@@ -827,7 +1160,8 @@ def extrapolated_analysis(arch: str, shape_name: str, mesh: Mesh,
     base_units = {k: 2 if n > 2 + order else n for k, (n, _) in knobs.items()}
     base = _compile_at(arch, shape_name, mesh, _at_depth(cfg, base_units))
     out = {"meta": base["meta"], "flops": base["flops"], "bytes": base["bytes"],
-           "coll": dict(base["coll"]), "memory": dict(base["memory"])}
+           "coll": dict(base["coll"]), "by_shape": dict(base["by_shape"]),
+           "memory": dict(base["memory"])}
 
     for knob, (n, _) in knobs.items():
         if n == base_units[knob]:
@@ -847,9 +1181,10 @@ def extrapolated_analysis(arch: str, shape_name: str, mesh: Mesh,
         out["bytes"] += delta[1]
         for attr, d in zip(_MEM_ATTRS, delta[2:]):
             out["memory"][attr] += d
-        for kind in set().union(*(c["coll"] for c in points)):
-            d = sum(w * c["coll"].get(kind, 0) for w, c in zip(weights, points))
-            out["coll"][kind] = out["coll"].get(kind, 0) + d
+        for field in ("coll", "by_shape"):
+            for key in set().union(*(c[field] for c in points)):
+                d = sum(w * c[field].get(key, 0) for w, c in zip(weights, points))
+                out[field][key] = out[field].get(key, 0) + d
     out["memory"]["temp_size_in_bytes"] = max(out["memory"]["temp_size_in_bytes"], 0)
     out["depth"] = {k: n for k, (n, _) in knobs.items()}
     out["traced_depth"] = base_units
@@ -876,6 +1211,7 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
             "flops": float(counts["flops"]),
             "bytes_accessed": float(counts["bytes"]),
             "collective_bytes": coll,
+            "top_collectives": _top_collectives(counts["by_shape"]),
             "memory": _mem_dict(MemoryAnalysis(**counts["memory"])),
         }
     )
@@ -887,6 +1223,18 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"bytes={result['bytes_accessed']:.3e}")
         print(f"  collectives: { {k: f'{v:.3e}' for k, v in coll.items()} }")
     return result
+
+
+def _top_collectives(by_shape: Dict[Tuple[str, str, Tuple[int, ...]], int],
+                     n: int = 3) -> List[Dict[str, Any]]:
+    """The ``n`` collectives of one kind, dtype and per-device shape that
+    move the most bytes in the step, with their count."""
+    rows = []
+    for (kind, dtype, shape), count in by_shape.items():
+        size = math.prod(shape) * _DTYPE_BYTES[dtype]
+        rows.append({"kind": kind, "dtype": dtype, "shape": list(shape),
+                     "count": int(count), "bytes": float(count * size)})
+    return sorted(rows, key=lambda r: -r["bytes"])[:n]
 
 
 _MEM_ATTRS = ("argument_size_in_bytes", "output_size_in_bytes",

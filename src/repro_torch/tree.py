@@ -9,7 +9,7 @@ not a dict, list or tuple is a leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Tuple
+from typing import Any, Callable, Iterator, List, NamedTuple, Tuple
 
 import torch
 
@@ -63,21 +63,22 @@ def tree_flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
     return leaves, TreeDef(skeleton, len(leaves))
 
 
+def _build(node: Any, leaves: Iterator[Any]) -> Any:
+    if node is _LEAF:
+        return next(leaves)
+    if isinstance(node, dict):
+        return {k: _build(v, leaves) for k, v in node.items()}
+    return _rebuild(node, [_build(n, leaves) for n in node])
+
+
 def tree_unflatten(treedef: TreeDef, leaves: List[Any]) -> PyTree:
+    # module-level recursion: a recursive closure is a reference cycle,
+    # which would hold every leaf until the cyclic collector runs
     if len(leaves) != treedef.num_leaves:
         raise ValueError(
             f"treedef has {treedef.num_leaves} leaves, got {len(leaves)}"
         )
-    it = iter(leaves)
-
-    def build(node: Any) -> Any:
-        if node is _LEAF:
-            return next(it)
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        return _rebuild(node, [build(n) for n in node])
-
-    return build(treedef.skeleton)
+    return _build(treedef.skeleton, iter(leaves))
 
 
 class DictKey(NamedTuple):
@@ -121,23 +122,23 @@ def flatten_up_to(treedef: TreeDef, tree: PyTree) -> List[Any]:
     in order, as ``jax``'s ``treedef.flatten_up_to``: ``tree`` must have
     ``treedef``'s containers down to them."""
     out: List[Any] = []
-
-    def walk(node: Any, sub: Any) -> None:
-        if node is _LEAF:
-            out.append(sub)
-        elif isinstance(node, dict):
-            if not isinstance(sub, dict) or sorted(sub) != list(node):
-                raise ValueError(f"tree does not match {treedef}: {sub!r}")
-            for k, child in node.items():
-                walk(child, sub[k])
-        else:
-            if type(sub) is not type(node) or len(sub) != len(node):
-                raise ValueError(f"tree does not match {treedef}: {sub!r}")
-            for child, s in zip(node, sub):
-                walk(child, s)
-
-    walk(treedef.skeleton, tree)
+    _walk_up_to(treedef, treedef.skeleton, tree, out)
     return out
+
+
+def _walk_up_to(treedef: TreeDef, node: Any, sub: Any, out: List[Any]) -> None:
+    if node is _LEAF:
+        out.append(sub)
+    elif isinstance(node, dict):
+        if not isinstance(sub, dict) or sorted(sub) != list(node):
+            raise ValueError(f"tree does not match {treedef}: {sub!r}")
+        for k, child in node.items():
+            _walk_up_to(treedef, child, sub[k], out)
+    else:
+        if type(sub) is not type(node) or len(sub) != len(node):
+            raise ValueError(f"tree does not match {treedef}: {sub!r}")
+        for child, s in zip(node, sub):
+            _walk_up_to(treedef, child, s, out)
 
 
 def tree_leaves(tree: PyTree) -> List[Any]:

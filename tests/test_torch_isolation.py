@@ -13,9 +13,10 @@ package, and its copied numpy modules stay verbatim copies.
     driver (``python -m repro_torch.launch.train``) in FedLEO mode on the
     CPU with a checkpoint; a sixth imports the launch layer (mesh,
     sharding, specs, dryrun, calibrate) and prices a step in the
-    roofline's ``compiled`` mode.
-  * An AST scan of every module of the port and of ``chip_smoke.py``
-    finds no import of jax or of the reference package.
+    roofline's ``compiled`` mode; and one a twin runs each example twin
+    (``examples/*_torch.py``) on the CPU.
+  * An AST scan of every module of the port, of ``chip_smoke.py`` and of
+    the example twins finds no import of jax or of the reference package.
   * Every copied module equals its reference file with the imports
     rebound to repro_torch, under a one-line header naming the source.
 """
@@ -53,6 +54,14 @@ COPIED = [
     "configs/phi3_medium_14b.py", "configs/seamless_m4t_large_v2.py",
     "configs/zamba2_1p2b.py",
 ]
+# the example twins: each runs with jax and the reference blocked, with these
+# arguments (train_arch cut to 4 steps)
+TWINS = {
+    "quickstart_torch": ["--device", "cpu"],
+    "sota_comparison_torch": ["--fast", "--device", "cpu"],
+    "train_arch_torch": ["--small", "--steps", "4", "--tau", "2", "--device", "cpu"],
+    "serve_decode_torch": ["--device", "cpu"],
+}
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro(?=[.\s])", re.M)
 
 
@@ -74,7 +83,7 @@ def _imports(path: pathlib.Path):
 @pytest.mark.parametrize(
     "path",
     sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py"],
+    + ["chip_smoke.py"] + [f"examples/{name}.py" for name in TWINS],
 )
 def test_no_jax_or_reference_imports(path):
     bad = [(line, mod) for line, mod in _imports(ROOT / path) if _banned(mod)]
@@ -302,3 +311,26 @@ def test_compiled_mode_runs_with_jax_and_reference_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ISOLATED-LAUNCH-OK" in proc.stdout
+
+
+_ISOLATED_TWIN = _ISOLATED_RUN[:_ISOLATED_RUN.index("import torch")] + textwrap.dedent("""
+    import runpy
+    sys.argv = [sys.argv[1], *sys.argv[2:]]
+    runpy.run_path(sys.argv[0], run_name="__main__")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not loaded, loaded
+    print("ISOLATED-TWIN-OK")
+""")
+
+
+@pytest.mark.parametrize("name", sorted(TWINS))
+def test_example_twin_runs_with_jax_and_reference_blocked(name):
+    # one thread: the suite's workers share the cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _ISOLATED_TWIN, str(ROOT / "examples" / f"{name}.py"),
+         *TWINS[name]],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ISOLATED-TWIN-OK" in proc.stdout

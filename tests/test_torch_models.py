@@ -180,6 +180,33 @@ def test_tree_flatten_order_matches_jax(tree):
     assert jax.tree_util.tree_leaves(doubled) == [2 * l for l in leaves]
 
 
+@pytest.mark.parametrize("build", ["tree_map", "flatten_up_to"])
+def test_tree_helpers_leave_no_reference_cycle(build):
+    """A tree built by ``tree_map`` (``tree_unflatten``) or read by
+    ``flatten_up_to`` lets its leaves go with the last reference, with
+    the cyclic collector off: a recursive closure would hold them in a
+    cycle until it runs."""
+    import gc
+    import weakref
+
+    from repro_torch.tree import flatten_up_to
+
+    tree = {"a": [torch.ones(4), (torch.ones(2), torch.ones(3))], "b": torch.ones(5)}
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        if build == "tree_map":
+            out = tree_map(lambda t: t * 2, tree)
+        else:
+            out = flatten_up_to(tree_flatten(tree)[1], tree_map(lambda t: t * 2, tree))
+        refs = [weakref.ref(t) for t in tree_leaves(out)]
+        del out
+        assert all(r() is None for r in refs)
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def test_tree_map_rejects_mismatched_structures():
     with pytest.raises(ValueError, match="structures differ"):
         tree_map(lambda a, b: a, {"a": 1}, {"b": 1})
