@@ -149,14 +149,20 @@ script exits non-zero without a result line:
  27. dryrun      — ``python -m repro_torch.launch.dryrun`` on the 16 x 16
                    production mesh (torch's fake process-group backend,
                    no card), one subprocess a pair, all at once: gemma-7b
-                   train_4k, kimi-k2 prefill_32k, mamba2-780m decode_32k,
-                   zamba2-1.2b train_4k, internvl2-26b prefill_32k and
-                   seamless decode_32k; per-device memory, FLOPs, bytes
-                   and collective bytes (the largest by shape), whether
-                   the per-device bytes fit the card, beside the
-                   reference's (``DRYRUN_REFERENCE``); train pairs must
-                   show collective traffic, and every pair that fits in
-                   the reference must fit in the port.
+                   train_4k and long_500k, kimi-k2 prefill_32k,
+                   mamba2-780m decode_32k and prefill_32k, zamba2-1.2b
+                   train_4k, internvl2-26b prefill_32k, seamless
+                   decode_32k and llama4-maverick decode_32k; per-device
+                   memory, FLOPs, bytes and collective bytes (the largest
+                   by shape; also with each layer stack's unit counted
+                   once, as the reference's HLO lists a scanned loop's
+                   body once), the routes, whether the per-device bytes
+                   fit the card, beside the reference's
+                   (``DRYRUN_REFERENCE``); train pairs must show
+                   collective traffic, every pair that fits in the
+                   reference must fit in the port, and each serving pair
+                   must keep within its bounds against the reference
+                   (``DRYRUN_DECODE_*``, ``DRYRUN_PREFILL_BOUNDS``).
                    The 40-pair sweep is not run: its time is estimated
                    from the pairs'.
 
@@ -316,8 +322,23 @@ CALIBRATE_BATCH, CALIBRATE_SEQ = 4, 128
 COMPILED_FLOP_BAND, COMPILED_FLOP_BANDS = (0.95, 1.30), {"seamless-m4t-large-v2": (1.5, 1.8)}
 DRYRUN_PAIRS = [("gemma-7b", "train_4k"), ("kimi-k2-1t-a32b", "prefill_32k"),
                 ("mamba2-780m", "decode_32k"), ("zamba2-1.2b", "train_4k"),
-                ("internvl2-26b", "prefill_32k"), ("seamless-m4t-large-v2", "decode_32k")]
+                ("internvl2-26b", "prefill_32k"), ("seamless-m4t-large-v2", "decode_32k"),
+                ("gemma-7b", "long_500k"), ("llama4-maverick-400b-a17b", "decode_32k"),
+                ("mamba2-780m", "prefill_32k")]
 DRYRUN_TIMEOUT_S = 480
+# the routes a dry-run record names (``lower_pair``'s meta)
+DRYRUN_ROUTES = ("weights", "embedding", "attention", "head", "cache_writes", "loss",
+                 "experts", "ssd", "products")
+# the serving pairs' bounds against the reference (tests/test_torch_dryrun_serve.py's):
+# a decode step's collective bytes within 4x the reference's or 16 MB, whichever is
+# larger, its per-device bytes within 2x or 0.25 GB; a prefill's collective bytes and
+# per-device bytes within the ratios given: mamba2-780m's collectives 4x, internvl2's
+# 10x, and no ratio above PR 21's on torch 2.13 (kimi-k2 13.0x and 0.70x, internvl2's
+# memory 0.74x, mamba2's 1.02x)
+DRYRUN_DECODE_COLLECTIVE, DRYRUN_DECODE_MEMORY = (4.0, 16e6), (2.0, 0.25e9)
+DRYRUN_PREFILL_BOUNDS = {"kimi-k2-1t-a32b": {"collective": 13.0, "memory": 0.70},
+                         "internvl2-26b": {"collective": 10.0, "memory": 0.74},
+                         "mamba2-780m": {"collective": 4.0, "memory": 1.02}}
 # profiled prefills: sessions tried for a profile that holds every kernel launched
 PROFILE_SESSIONS = 3
 # the example twins as phase ``examples`` runs them (train_arch at its default
@@ -348,6 +369,15 @@ DRYRUN_REFERENCE = {
     ("seamless-m4t-large-v2", "decode_32k"): {"argument": 2559192196, "output": 2420018544,
                                               "temp": 5135115720, "alias": 2415919200,
                                               "collective": 100486240},
+    ("gemma-7b", "long_500k"): {"argument": 368980088, "output": 234913168,
+                                "temp": 705193664, "alias": 234881136, "collective": 1208204},
+    ("llama4-maverick-400b-a17b", "decode_32k"): {"argument": 10148616420,
+                                                  "output": 3221427768, "temp": 8674436008,
+                                                  "alias": 3221225664,
+                                                  "collective": 406375520},
+    ("mamba2-780m", "prefill_32k"): {"argument": 31654912, "output": 3217920,
+                                     "temp": 15697766456, "alias": 0,
+                                     "collective": 16746165376},
 }
 
 
@@ -2815,13 +2845,14 @@ def run_dryrun(torch, dev, smi):
             ref = DRYRUN_REFERENCE[(arch, shape)]
             ref_bytes = ref["argument"] + ref["output"] + ref["temp"] - ref["alias"]
             fits, ref_fits = per_device <= card_bytes, ref_bytes <= card_bytes
+            body_once = sum((rec.get("collective_bytes_body_once") or {}).values())
             emit("dryrun", arch=arch, shape=shape, mesh=rec["mesh"], kind=rec["kind"],
                  depth=rec["depth"], traced_depth=rec["traced_depth"],
-                 attention=rec.get("attention"), loss=rec.get("loss"),
-                 experts=rec.get("experts"), torch_flattens_sharded_dims=rec.get(
-                     "dtensor_flattens_sharded_dims"),
+                 **{route: rec.get(route) for route in DRYRUN_ROUTES},
+                 torch_flattens_sharded_dims=rec.get("dtensor_flattens_sharded_dims"),
                  flops_per_device=rec["flops"], bytes_per_device=rec["bytes_accessed"],
                  collective_bytes=rec["collective_bytes"],
+                 collective_bytes_body_once=body_once,
                  top_collectives=rec.get("top_collectives"), memory=mem,
                  per_device_bytes=per_device, card_bytes=card_bytes, fits_card=fits,
                  reference_per_device_bytes=ref_bytes, reference_fits_card=ref_fits,
@@ -2829,6 +2860,7 @@ def run_dryrun(torch, dev, smi):
                  per_device_over_reference=per_device / ref_bytes,
                  reference_collective_bytes=ref["collective"],
                  collective_over_reference=coll / ref["collective"],
+                 collective_body_once_over_reference=body_once / ref["collective"],
                  seconds=rec["compile_s"], wall_s=rec["wall_s"],
                  host="this run's CPU (fake tensors)", nvidia_smi=smi)
             check(all(math.isfinite(v) and v >= 0 for v in numbers) and rec["flops"] > 0,
@@ -2840,6 +2872,20 @@ def run_dryrun(torch, dev, smi):
             check(fits or not ref_fits,
                   f"dryrun: {arch} x {shape} needs {per_device:.4g} B a device, over the "
                   f"card's {card_bytes}, where the reference's {ref_bytes:.4g} B fit")
+            if rec["kind"] == "decode":
+                (c_ratio, c_floor), (m_ratio, m_floor) = (DRYRUN_DECODE_COLLECTIVE,
+                                                          DRYRUN_DECODE_MEMORY)
+                c_bound = max(c_ratio * ref["collective"], c_floor)
+                m_bound = max(m_ratio * ref_bytes, m_floor)
+            elif rec["kind"] == "prefill":
+                bounds = DRYRUN_PREFILL_BOUNDS[arch]
+                c_bound = bounds["collective"] * ref["collective"]
+                m_bound = bounds["memory"] * ref_bytes
+            else:
+                continue
+            check(coll <= c_bound and per_device <= m_bound,
+                  f"dryrun: {arch} x {shape} moves {coll:.4g} B and holds {per_device:.4g} B "
+                  f"a device, over its bounds {c_bound:.4g} and {m_bound:.4g}")
     finally:
         for proc, _, _ in procs.values():
             if proc.poll() is None:
@@ -2848,7 +2894,7 @@ def run_dryrun(torch, dev, smi):
     per_pair = statistics.mean(r["compile_s"] for r in records)
     emit("dryrun", what="the 40-pair sweep (10 archs x 4 shapes, 16 x 16) is not run here",
          pairs_run=len(records), mean_pair_s=per_pair, sweep_estimate_s=40 * per_pair,
-         command="PYTHONPATH=src python -m repro_torch.launch.dryrun --out dryrun_16x16.jsonl")
+         command="PYTHONPATH=src python tools/dryrun_matrix.py --out build/dryrun/16x16.jsonl")
     phase_wall("dryrun", t0)
 
 

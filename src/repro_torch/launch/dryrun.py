@@ -25,13 +25,25 @@ layer stack), where XLA's cost model counts a loop's body once: the
 port's FLOPs read 1.4-1.7x XLA's at the smoke shape.
 
 On a sharded mesh the step runs the plan a sharded program runs, not
-DTensor's replicated defaults: parameters are all-gathered over the
-FSDP axes layer by layer (``_FsdpModel``); attention runs on each
-device's query heads and the kv heads they read, KV caches stay as
-``cache_specs`` shards them; the head and the cross-entropy run on each
-device's vocabulary shard; MoE experts run where they are held, each
-device filling buffers for its experts from its data shard's tokens
-(``_substituted``).  The record names each route.
+DTensor's replicated defaults (``_FsdpModel``, ``_substituted``):
+
+  * train: parameters all-gathered over the FSDP axes layer by layer;
+    attention on each device's query heads and the kv heads they read;
+    the head and the cross-entropy on each device's vocabulary shard; MoE
+    experts where they are held, each device filling buffers for its
+    experts from its data shard's tokens;
+  * prefill: the same gathers, in the model's dtype, and every product
+    on the model-axis shard a device holds (``_SplitWeight``): column
+    then row parallel, a Mamba block on each device's heads;
+  * decode: no parameter moves.  Each product contracts on the shards a
+    device holds and sums its partial activations over the axes that
+    split the contraction (``_split_product``), the embedding is a
+    masked local lookup, the logits stay split over the vocabulary, the
+    experts run with their d_model slices, the caches are written on
+    their shards, and at a batch of one the idle data axis splits the
+    key positions.
+
+The record names each route.
 
 For each pair this prints and records what the reference does
 (``compiled.memory_analysis()``, ``compiled.cost_analysis()`` and the
@@ -40,7 +52,10 @@ HLO-like line per collective), and the three collectives (kind, dtype,
 per-device shape) that move the most bytes.  The port's steps run out
 of place, so nothing aliases: ``donate`` is accepted, never modelled.
 The fake process group has no all-to-all: DTensor sends one as an
-all-gather and a chunk, and it is counted so.
+all-gather and a chunk, which is counted as the all-to-all it stands for.
+XLA's HLO text lists a scanned layer stack's loop body once, so the
+reference's collective bytes count one layer of each stack; each record
+also gives the port's with each stack's unit counted once.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch mistral-large-123b --shape train_4k
@@ -175,6 +190,12 @@ class _Counter(TorchDispatchMode):
         finally:
             self.times //= n
 
+    def count_collective(self, kind: str, out) -> None:
+        """A collective of ``kind`` whose per-device output is ``out``."""
+        for t in _tensors(out):
+            key = (kind, t.dtype, tuple(t.shape))
+            self.collectives[key] = self.collectives.get(key, 0) + self.times
+
     def _release(self, key: int) -> None:
         self.refs[key] -= 1
         if not self.refs[key]:
@@ -209,9 +230,7 @@ class _Counter(TorchDispatchMode):
         if namespace in _COLLECTIVE_NAMESPACES:
             kind = _HLO_COLLECTIVES.get(func.overloadpacket.__name__)
             if kind is not None:
-                for t in _tensors(out):
-                    key = (kind, t.dtype, tuple(t.shape))
-                    self.collectives[key] = self.collectives.get(key, 0) + self.times
+                self.count_collective(kind, out)
         elif not _is_view(func):
             ins, outs = _tensors((args, kwargs)), _tensors(out)
             self.bytes += self.times * (sum(_nbytes(t) for t in ins)
@@ -255,7 +274,9 @@ def _dtensor_bookkeeping_uncounted(counter: "_Counter"):
     decomposition, to learn a strategy (both paused), and a
     strided shard's size and offsets come from small index tensors
     (paused, and computed outside the fake mode, where ``.tolist()``
-    works)."""
+    works).  A CPU mesh has no all-to-all: DTensor moves a shard from one
+    dim to another as an all-gather of the whole and a chunk, which is
+    counted as the all-to-all it stands for (its output, the new shard)."""
     from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor import _decompositions, placement_types
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
@@ -274,11 +295,23 @@ def _dtensor_bookkeeping_uncounted(counter: "_Counter"):
         raise RuntimeError("this torch's DTensor has no ShardingPropagator."
                            "_propagate_tensor_meta_non_cached: the dry run cannot tell "
                            "its metadata runs from the step's")
+
+    def all_to_all(fn):
+        def run(input, gather_dim, shard_dim, mesh, mesh_dim):
+            out = paused(fn)(input, gather_dim, shard_dim, mesh, mesh_dim)
+            if not counter.paused:
+                counter.count_collective("all-to-all", out)
+                for t in _tensors(out):
+                    counter._track(t)
+            return out
+        return run
+
     targets = [(ShardingPropagator, "_propagate_tensor_meta_non_cached", paused),
                (getattr(_decompositions, "DecompShardingStrategy", None),
                 "propagate_strategy", paused),
                (getattr(placement_types, "_StridedShard", None), "local_shard_size_and_offset",
-                lambda fn: paused(fn, unfake=True))]
+                lambda fn: paused(fn, unfake=True)),
+               (placement_types, "shard_dim_alltoall", all_to_all)]
     originals = [(owner, name, _patched(owner, name, wrap)) for owner, name, wrap in targets]
     try:
         yield
@@ -438,6 +471,15 @@ def _reduce_over_model(local: torch.Tensor, like, op: str = "sum") -> torch.Tens
     return _to_local(whole, _batch_placements(like, Replicate()))
 
 
+def _reduce_over(local: torch.Tensor, mesh, dims: List[int], op: str = "sum") -> torch.Tensor:
+    """``local``'s sum (or max) over the mesh dims ``dims``, an
+    all-reduce on each (``local`` is whole over them)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    pl = [Partial(op) if i in dims else Replicate() for i in range(mesh.ndim)]
+    return _to_local(_from_local(local, mesh, pl, local.shape), [Replicate()] * mesh.ndim)
+
+
 def _global_shape(local: torch.Tensor, like, placements) -> Tuple[int, ...]:
     from torch.distributed.tensor import Shard
 
@@ -521,22 +563,37 @@ def _regrouped_scores(fn):
             out = fn(ql, kl, vl, ml, per, logit_soft_cap)
             return _from_local(out, q.device_mesh, q_pl, q.shape)
         pl = _batch_placements(q, Shard(3))
-        ql, kl, vl = _to_local(q, pl), _to_local(k, pl), _to_local(v, pl)
-        ml = _local_rows(mask, q, _batch_placements(q, Replicate()))
+        # mesh dims that split neither the batch nor the cache (a batch of
+        # one): each device there takes a slice of the key positions
+        mesh = q.device_mesh
+        idle = [i for i, (pq, pk) in enumerate(zip(q.placements, k.placements))
+                if i != mi and pq == Replicate() and pk == Replicate()]
+        if k.shape[1] % math.prod(mesh.size(i) for i in idle):
+            idle = []
+        kv_pl = [Shard(1) if i in idle else p for i, p in enumerate(pl)]
+        mask_pl = [Shard(2) if i in idle else p
+                   for i, p in enumerate(_batch_placements(q, Replicate()))]
+        ql, kl, vl = _to_local(q, pl), _to_local(k, kv_pl), _to_local(v, kv_pl)
+        ml = _local_rows(mask, q, mask_pl)
         b, sq, h, hd = ql.shape
         g = kl.shape[2]
         partial = torch.einsum("bqgph,bkgh->bgpqk", ql.reshape(b, sq, g, h // g, hd), kl)
-        logits = _reduce_over_model(partial.float(), q).to(q.dtype) / math.sqrt(q.shape[-1])
+        logits = _reduce_over_model(partial, q) / math.sqrt(q.shape[-1])
         if logit_soft_cap is not None:
             logits = logit_soft_cap * torch.tanh(logits / logit_soft_cap)
         logits = logits.masked_fill(~ml[:, None, None], torch.finfo(logits.dtype).min)
-        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-        out = torch.einsum("bgpqk,bkgh->bqgph", probs, vl).reshape(b, sq, h, hd)
-        # the output projection contracts heads and head dim together:
-        # hand it the heads split (a new token's worth)
-        m = _model_size_and_rank(q)[0]
-        heads = _batch_placements(q, Shard(2) if regroups(h, g, m) else Replicate())
-        return _from_local(out, q.device_mesh, pl, q.shape).redistribute(q.device_mesh, heads)
+        if idle:        # the softmax over key positions split over the idle dims
+            x = logits.float()
+            top = _reduce_over(x.amax(dim=-1, keepdim=True), mesh, idle, "max")
+            e = torch.exp(x - top)
+            probs = (e / _reduce_over(e.sum(dim=-1, keepdim=True), mesh, idle)).to(q.dtype)
+            out = _reduce_over(torch.einsum("bgpqk,bkgh->bqgph", probs, vl), mesh, idle)
+        else:
+            probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+            out = torch.einsum("bgpqk,bkgh->bqgph", probs, vl)
+        # left split on the head dim: the output projection contracts heads
+        # and head dim together, on whichever split it takes
+        return _from_local(out.reshape(b, sq, h, hd), q.device_mesh, pl, q.shape)
 
     return attention_scores
 
@@ -600,6 +657,9 @@ def _expert_parallel(fn):
         act = torch.nn.functional.silu if activation == "silu" else moe._gelu_tanh
         m, rank = _model_size_and_rank(x)
         names, mi = _mesh_dims(x)
+        if any(isinstance(p, Shard) for i, p in enumerate(_unwrapped(params["w_gate"]).placements)
+               if i != mi):
+            return _expert_parallel_decode(params, x, cfg, act)    # d_model still split
         n = len(names)
         E = cfg.num_experts
         split = E % m == 0 and m > 1          # the output is a sum over the model dim
@@ -614,7 +674,7 @@ def _expert_parallel(fn):
             grad = [Partial() if i in batch else Replicate() for i in range(n)]
             if mi is not None:
                 pl[mi], grad[mi] = model, model_grad or model
-            return _to_local(t, pl, grad)
+            return _to_local(_unwrapped(t), pl, grad)
 
         x_grad = list(x_pl)
         if split:
@@ -649,6 +709,8 @@ def _expert_parallel(fn):
         if split:
             out_pl[mi] = Partial()
         out = _from_local(out.reshape(b, s, d), x.device_mesh, out_pl, x.shape)
+        if not torch.is_grad_enabled():     # summed once here, not once per reader
+            out = out.redistribute(x.device_mesh, x_pl)
         shards = math.prod(x.device_mesh.size(i) for i in batch)
         aux_pl = [Partial() if i in batch else Replicate() for i in range(n)]
         aux = _from_local(aux / shards, x.device_mesh, aux_pl, ())
@@ -672,15 +734,346 @@ def _vocab_parallel_head(fn):
     return _lm_head
 
 
+def _per_head_mamba(fn, ssd_chunked):
+    """``apply_mamba_block``'s full-sequence pass on each device's heads
+    (they divide over the model dim, as ``in_proj``'s ``("F", "T")``
+    splits them): the device takes ``in_proj``'s columns of its heads' z,
+    x and dt and every column of B and C (the weight gathered whole over
+    the model dim, in the activations' dtype), runs the conv on its
+    channels and ``ssd_chunked`` on its heads, so the (P, N) state stays
+    on it, as attention runs on its query heads; the output norm's mean
+    square and ``out_proj``'s partial sums (its rows are the heads') are
+    summed over the model dim.  ``fn`` runs a decode step."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models import mamba2, nn
+
+    def apply_mamba_block(params, x, cfg, cache=None, ssd_impl="xla"):
+        d_inner, heads, g, n, _ = mamba2._dims(cfg)
+        if cache is not None or not isinstance(x, DTensor):
+            return fn(params, x, cfg, cache, ssd_impl)
+        m, _ = _model_size_and_rank(x)
+        _, mi = _mesh_dims(x)
+        if mi is None or heads % m:
+            return fn(params, x, cfg, cache, ssd_impl)
+        mesh = x.device_mesh
+
+        def whole(t):
+            return _to_local(t, [Replicate()] * mesh.ndim) if isinstance(t, DTensor) else t
+
+        def mine(t, dim):
+            """The device's part of ``t`` (whole on it) along ``dim``: its heads'."""
+            pl = [Replicate()] * mesh.ndim
+            pl[mi] = Shard(dim)
+            return _local_rows(t, x, pl)
+
+        p_ = cfg.ssm.head_dim
+        e = heads // m * p_                        # the device's inner channels
+        xl = _to_local(x, _batch_placements(x, Replicate()))
+        b, s, _ = xl.shape
+        h = nn.apply_rmsnorm({"scale": whole(params["norm"]["scale"])}, xl)
+        w_in = whole(_unwrapped(params["in_proj"]).to(xl.dtype))
+        dt_at = 2 * d_inner + 2 * g * n
+        z, xin, bc, dt = torch.split(h @ torch.cat(
+            [mine(w_in[:, :d_inner], 1), mine(w_in[:, d_inner:2 * d_inner], 1),
+             w_in[:, 2 * d_inner:dt_at], mine(w_in[:, dt_at:], 1)], dim=1),
+            [e, e, 2 * g * n, heads // m], dim=-1)
+        conv_w, conv_b = whole(params["conv_w"]), whole(params["conv_b"])
+        conv_out, _ = mamba2._causal_conv(
+            torch.cat([xin, bc], dim=-1),
+            torch.cat([mine(conv_w[:, :d_inner], 1), conv_w[:, d_inner:]], dim=1),
+            torch.cat([mine(conv_b[:d_inner], 0), conv_b[d_inner:]]))
+        conv_out = torch.nn.functional.silu(conv_out)
+        xh = conv_out[..., :e].reshape(b, s, heads // m, p_)
+        bm = conv_out[..., e:e + g * n].reshape(b, s, g, n)
+        cm = conv_out[..., e + g * n:].reshape(b, s, g, n)
+        dt = torch.nn.functional.softplus(dt.float() + mine(whole(params["dt_bias"]), 0))
+        a = -torch.exp(mine(whole(params["A_log"]), 0))
+        y, _ = ssd_chunked(xh, dt, a, bm, cm, chunk=min(cfg.ssm.chunk_size, s))
+        y = y + mine(whole(params["D"]), 0)[None, None, :, None].to(y.dtype) * xh
+        y = y.reshape(b, s, e) * torch.nn.functional.silu(z)
+        y32 = y.float()
+        square = _reduce_over_model(torch.sum(torch.square(y32), dim=-1, keepdim=True), x)
+        scale = mine(whole(params["out_norm"]["scale"]), 0)
+        y = (y32 * torch.rsqrt(square / d_inner + 1e-6) * scale).to(y.dtype)
+        rows = [Replicate()] * mesh.ndim
+        rows[mi] = Shard(0)
+        out = xl + _reduce_over_model(
+            y @ _to_local(_unwrapped(params["out_proj"]), rows).to(y.dtype), x)
+        return _from_local(out, mesh, _batch_placements(x, Replicate()), x.shape), None
+
+    return apply_mamba_block
+
+
+def _per_head_ssd(fn):
+    """``ssd_chunked`` on each device's heads, for a train step (under
+    autograd; a prefill runs the whole block per head, ``_per_head_mamba``):
+    x, dt and A on the device's heads, B and C whole over the model dim
+    (their gradients the heads' partial sums), the (P, N) state of each
+    head on the device that holds it.  No collective runs inside the scan,
+    and DTensor never flattens the batch and the heads both sharded (which
+    torch 2.11 refuses)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    def ssd_chunked(x, dt, A, Bm, Cm, chunk=128, initial_state=None):
+        if not isinstance(x, DTensor):
+            return fn(x, dt, A, Bm, Cm, chunk, initial_state)
+        m, _ = _model_size_and_rank(x)
+        _, mi = _mesh_dims(x)
+        if mi is None or x.shape[2] % m:
+            return fn(x, dt, A, Bm, Cm, chunk, initial_state)
+        heads = _batch_placements(x, Shard(2))
+        whole = _batch_placements(x, Replicate())
+        whole_grad = _batch_placements(x, Partial())
+        a_pl = [Shard(0) if i == mi else Replicate() for i in range(len(heads))]
+        a_grad = [Shard(0) if i == mi else Partial() if isinstance(p, Shard) else Replicate()
+                  for i, p in enumerate(whole)]
+
+        def local(t, pl, grad):
+            return _to_local(t, pl, grad) if isinstance(t, DTensor) else _local_rows(t, x, pl)
+
+        state_pl = _batch_placements(x, Shard(1))
+        init = None if initial_state is None else local(initial_state, state_pl, state_pl)
+        y, state = fn(local(x, heads, heads), local(dt, heads, heads), local(A, a_pl, a_grad),
+                      local(Bm, whole, whole_grad), local(Cm, whole, whole_grad), chunk, init)
+        b, _, h, p_ = x.shape
+        return (_from_local(y, x.device_mesh, heads, x.shape),
+                _from_local(state, x.device_mesh, state_pl, (b, h, p_, Bm.shape[3])))
+
+    return ssd_chunked
+
+
+# --- decode with the weights where params_specs puts them -----------------------------
+# A decode step reads every weight once for a few tokens, so no weight moves:
+# each product contracts on the shards a device holds and sums its partial
+# activations over the mesh dims that split the contraction (``_split_product``),
+# the embedding looks up the rows a device holds and sums them, and the head's
+# logits stay split over the vocabulary.  A step without autograd hands the
+# layers ``_SplitWeight``s in place of the FSDP-sharded parameters (a prefill's
+# gathered over the data axes first); the model's own products (``x @ w``,
+# ``torch.einsum``) reach ``_split_product`` through ``__torch_function__``.
+def _split_product(equation: str, x, w):
+    """``torch.einsum(equation, x, w)`` with ``w`` (a DTensor) where it
+    lies.  On each mesh dim: where ``w`` splits a contracted dim, ``x``
+    takes the same slice and the product is partial there; where ``w``
+    splits one of its output dims, ``x`` is whole there; elsewhere a split
+    of ``x`` (its batch) carries through.  The result is laid out as the
+    residual stream: ``x``'s batch split kept (a partial sum reduced onto
+    it, a reduce-scatter), the model dim's split of an output dim kept
+    (column parallel), every other partial sum all-reduced."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    xs, rest = equation.replace(" ", "").split(",")
+    ws, out = rest.split("->")
+    mesh = w.device_mesh
+    if not isinstance(x, DTensor):
+        x = _from_local(x, mesh, [Replicate()] * mesh.ndim, x.shape)
+    _, mi = _mesh_dims(w)
+    x_pl, w_pl, out_pl, target = [], list(w.placements), [], []
+    for m, (pw, px) in enumerate(zip(w.placements, x.placements)):
+        carried = isinstance(px, Shard) and xs[px.dim] in out and xs[px.dim] not in ws
+        if isinstance(pw, Shard) and ws[pw.dim] in out:      # an output dim of w
+            x_pl.append(Replicate())
+            out_pl.append(Shard(out.index(ws[pw.dim])))
+        elif isinstance(pw, Shard):                          # a contracted dim of w
+            x_pl.append(Shard(xs.index(ws[pw.dim])))
+            out_pl.append(Partial())
+        elif carried:
+            x_pl.append(px)
+            out_pl.append(Shard(out.index(xs[px.dim])))
+        elif isinstance(px, Shard) and xs[px.dim] in ws:     # x splits a contracted dim:
+            x_pl.append(px)                                  # w, whole there, takes its slice
+            w_pl[m] = Shard(ws.index(xs[px.dim]))
+            out_pl.append(Partial())
+        else:
+            x_pl.append(Replicate())
+            out_pl.append(Replicate())
+        if carried:
+            target.append(Shard(out.index(xs[px.dim])))
+        elif m == mi and isinstance(out_pl[-1], Shard):
+            target.append(out_pl[-1])
+        else:
+            target.append(Replicate())
+    xl = _to_local(x, x_pl)
+    local = torch.einsum(equation, xl, _to_local(w, w_pl).to(xl.dtype))
+    y = _from_local(local, mesh, out_pl, _global_shape(local, w, out_pl))
+    return y if out_pl == target else y.redistribute(mesh, target)
+
+
+def _split_lookup(table, tokens, dtype=None):
+    """``table[tokens]`` with the table where it lies (rows over the model
+    dim where they split, features over the FSDP dims): each device looks
+    every token up in the rows it holds, zeros where it holds none, and the
+    rows are summed over the model dim, laid out as the tokens are.  With
+    ``dtype``, the rows of ``table.to(dtype)`` (the same values as the rows
+    cast after the lookup)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    # every token over the mesh dims that split the table, the tokens'
+    # own split elsewhere
+    tok_pl = [Replicate() if isinstance(p, Shard) else q
+              for p, q in zip(table.placements, tokens.placements)] \
+        if isinstance(tokens, DTensor) else [Replicate()] * mesh.ndim
+    ids = _to_local(tokens, tok_pl) if isinstance(tokens, DTensor) else tokens
+    tl = table.to_local() if dtype is None else table.to_local().to(dtype)
+    rows = tl.shape[0]
+    pl = [Partial() if p == Shard(0) else Shard(ids.ndim) if isinstance(p, Shard) else q
+          for p, q in zip(table.placements, tok_pl)]
+    # the first row the device holds, as a tensor
+    lo = _local_rows(torch.arange(table.shape[0]), table,
+                     [Shard(0) if p == Shard(0) else Replicate() for p in table.placements])[0]
+    held = (ids >= lo) & (ids < lo + rows)
+    looked = tl[torch.clamp(ids - lo, 0, rows - 1).long()]
+    looked = torch.where(held[..., None], looked, torch.zeros((), dtype=tl.dtype))
+    y = _from_local(looked, mesh, pl, tuple(tokens.shape) + tuple(table.shape[1:]))
+    target = ([p if isinstance(p, Shard) else Replicate() for p in tokens.placements]
+              if isinstance(tokens, DTensor) else [Replicate()] * mesh.ndim)
+    return y.redistribute(mesh, target)
+
+
+def _unwrapped(t):
+    return t.t if isinstance(t, _SplitWeight) else t
+
+
+class _SplitWeight:
+    """A parameter left as ``params_specs`` shards it, for a step without
+    autograd: its products run as ``_split_product`` (``x @ w``, ``x @
+    w.T``, ``torch.einsum(eq, x, w)``), a row lookup (``w[tokens]``) as
+    ``_split_lookup``, and ``w[i]`` takes layer i of a stack.  ``.to``
+    records the dtype the local shard is cast to inside the product."""
+
+    def __init__(self, t, transposed: bool = False, dtype=None):
+        self.t, self.transposed, self._dtype = t, transposed, dtype
+
+    @property
+    def shape(self):
+        return tuple(self.t.shape)[::-1] if self.transposed else tuple(self.t.shape)
+
+    @property
+    def T(self):
+        return _SplitWeight(self.t, not self.transposed, self._dtype)
+
+    def to(self, dtype):
+        return _SplitWeight(self.t, self.transposed, dtype)
+
+    def __getitem__(self, index):
+        if isinstance(index, int):
+            return _SplitWeight(self.t[index], self.transposed, self._dtype)
+        return _split_lookup(self.t, index, self._dtype)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", "")
+        if name == "einsum" and len(args) == 3 and isinstance(args[2], cls):
+            equation, x, w = args
+        elif name in ("matmul", "__matmul__") and isinstance(args[1], cls):
+            x, w = args
+            lead = "abcdefgh"[:x.ndim - 1]
+            equation = f"{lead}k,{'nk' if w.transposed else 'kn'}->{lead}n"
+        else:
+            raise TypeError(f"a split weight takes part in products and lookups only, not {name}")
+        if w.transposed and name == "einsum":
+            raise TypeError("a transposed split weight takes part in x @ w only")
+        t = w.t if w._dtype is None else w.t.to(w._dtype)
+        return _split_product(equation, x, t)
+
+
+def _expert_parallel_decode(params, x, cfg, act):
+    """``apply_moe`` with each expert's weights where they lie: experts
+    split over the model dim, their d_model rows (``w_gate``, ``w_up``) and
+    columns (``w_down``) over the FSDP dims.  Every device routes every
+    token, as the model does (one capacity for the whole batch), and fills
+    buffers for its experts with its d_model slice of the tokens; the gate
+    and up products are summed over the FSDP dims, the down product gives
+    the device its slice of the output, and the outputs are summed over the
+    model dim.  The router and the shared expert are split products."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.models import moe
+
+    mesh = x.device_mesh
+    n_dims = mesh.ndim
+    _, mi = _mesh_dims(x)
+    wg, wu, wd = (params[k].t for k in ("w_gate", "w_up", "w_down"))
+    split = mi is not None and wg.placements[mi] == Shard(0)
+    held = wg.to_local().shape[0]
+    lo = mesh.get_local_rank(mi) * held if split else 0
+    b, s, d = x.shape
+    n = b * s
+    # the router's logits of every token (a split product), then routing as
+    # the model routes them: ``route`` takes the logits through an identity
+    logits = _to_local(_split_product("bsd,de->bse", x, params["router"].t),
+                       [Replicate()] * n_dims).reshape(n, -1)
+    eye = torch.eye(cfg.num_experts, dtype=logits.dtype)
+    gate_vals, flats, valids, aux, cap = moe.route({"router": eye}, logits, cfg)
+    if split:
+        valids = [valid & (flat >= lo * cap) & (flat < (lo + held) * cap)
+                  for flat, valid in zip(flats, valids)]
+        flats = [torch.clamp(flat - lo * cap, 0, held * cap - 1) for flat in flats]
+    rows = [Shard(2) if p == Shard(1) else Replicate() for p in wg.placements]   # d_model
+    if split:
+        rows[mi] = Replicate()
+    xl = _to_local(x, rows).reshape(n, -1).to(x.dtype)
+    ex_in = moe.dispatch(xl, flats, valids, held, cap)
+    # (held, cap, F) partial over the FSDP dims that split d_model
+    experts = [Shard(0) if split and i == mi else Replicate() for i in range(n_dims)]
+    partial = [Partial() if p == Shard(1) else e for p, e in zip(wg.placements, experts)]
+
+    def summed(local):
+        shape = (held * (mesh.size(mi) if split else 1),) + tuple(local.shape[1:])
+        return _to_local(_from_local(local, mesh, partial, shape), experts)
+
+    gate = summed(torch.bmm(ex_in, wg.to_local().to(x.dtype)))
+    up = summed(torch.bmm(ex_in, wu.to_local().to(x.dtype)))
+    ex_out = torch.bmm(act(gate) * up, wd.to_local().to(x.dtype))
+    out = moe.combine(ex_out.reshape(held * cap, -1), gate_vals, flats, valids)
+    out_pl = [Shard(2) if p == Shard(2) else Replicate() for p in wd.placements]
+    if split:
+        out_pl[mi] = Partial()
+    y = _from_local(out.reshape(b, s, -1), mesh, out_pl, x.shape)
+    y = y.redistribute(mesh, _batch_placements(x, Replicate()))
+    if "shared" in params:
+        sh = params["shared"]
+        hidden = act(_split_product("bsd,df->bsf", x, sh["w_gate"].t).to(x.dtype)) * \
+            _split_product("bsd,df->bsf", x, sh["w_up"].t).to(x.dtype)
+        y = y + _split_product("bsf,fd->bsd", hidden, sh["w_down"].t).to(x.dtype)
+    return y, aux
+
+
+class _LocalCacheWrites(torch.overrides.TorchFunctionMode):
+    """A decode cache's write (``cache.index_copy_(dim, rows, new)``) on
+    each device's shard of the cache, the new rows laid out as the cache.
+    DTensor's own in-place ``index_copy_`` may pick a layout for the cache
+    other than the one it has (torch 2.13 then re-labels the cache without
+    moving it, as with a replicated batch of one)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        kwargs = kwargs or {}
+        if func is torch.Tensor.index_copy_ and isinstance(args[0], DTensor) and not kwargs:
+            cache, dim, index, new = args
+            if Shard(dim % cache.ndim) not in cache.placements:
+                idx = (_to_local(index, [Replicate()] * index.device_mesh.ndim)
+                       if isinstance(index, DTensor) else index)
+                nl = _local_rows(new, cache, list(cache.placements))
+                cache.to_local().index_copy_(dim, idx, nl.to(cache.dtype))
+                return cache
+        return func(*args, **kwargs)
+
+
 @contextlib.contextmanager
-def _substituted(counter: _Counter, count_loops: bool, sharded: bool):
+def _substituted(counter: _Counter, count_loops: bool, sharded: bool, grad: bool):
     """The step's functions that the dry run replaces for the duration of
     one run: chunked attention with its loops counted, not run (without
     autograd), and, on a sharded mesh, the per-device regions above and
-    the ``Transformer``'s vocabulary-parallel head (the SSM families keep
-    DTensor's plan: torch 2.11's DTensor cannot run their scan's backward
-    with the residual stream laid out so)."""
-    from repro_torch.models import layers, transformer
+    the ``Transformer``'s vocabulary-parallel head.  Without autograd a
+    Mamba block's full-sequence pass runs on each device's heads; under
+    autograd the SSD scan alone does, the rest of the block on DTensor's
+    plan, and a decode cache is written on its shards
+    (``_LocalCacheWrites``)."""
+    from repro_torch.models import hybrid, layers, mamba2, transformer
     from repro_torch.train import steps
 
     chunked = _counted_chunked_attention(counter) if count_loops else layers.chunked_attention
@@ -691,11 +1084,17 @@ def _substituted(counter: _Counter, count_loops: bool, sharded: bool):
                     (transformer, "apply_moe", _expert_parallel(transformer.apply_moe))]
         targets.append((transformer.Transformer, "_lm_head",
                         _vocab_parallel_head(transformer.Transformer._lm_head)))
+        if grad:
+            targets.append((mamba2, "ssd_chunked", _per_head_ssd(mamba2.ssd_chunked)))
+        else:
+            mamba = _per_head_mamba(mamba2.apply_mamba_block, mamba2.ssd_chunked)
+            targets += [(module, "apply_mamba_block", mamba) for module in (mamba2, hybrid)]
     originals = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
     for owner, name, new in targets:
         setattr(owner, name, new)
     try:
-        yield
+        with _LocalCacheWrites() if sharded and not grad else contextlib.nullcontext():
+            yield
     finally:
         for owner, name, original in originals:
             setattr(owner, name, original)
@@ -776,7 +1175,7 @@ class Lowered:
         counter = _Counter(self.fake_mode, {t.untyped_storage()._cdata for t in arg_locals})
         propagation = (_dtensor_bookkeeping_uncounted(counter) if self.mesh.size > 1
                        else contextlib.nullcontext())
-        regions = _substituted(counter, self.count_loops, self.mesh.size > 1)
+        regions = _substituted(counter, self.count_loops, self.mesh.size > 1, self.grad)
         with propagation, regions, self.fake_mode, CommDebugMode() as comm, counter, \
                 use_mesh_compat(self.mesh):
             out = self.fn(*args)
@@ -932,17 +1331,20 @@ def _gather(t, axes: Tuple[str, ...]):
 
 class _StackGather:
     """A stacked leaf whose layers are all-gathered one index at a time,
-    when the model takes them (``leaf[i]``), as FSDP gathers a layer."""
+    when the model takes them (``leaf[i]``), as FSDP gathers a layer;
+    with ``wrap``, each gathered layer is a ``_SplitWeight``."""
 
-    def __init__(self, t, axes: Tuple[str, ...]):
-        self.t, self.axes = t, axes
+    def __init__(self, t, axes: Tuple[str, ...], wrap_as=None):
+        self.t, self.axes, self.wrap_as = t, axes, wrap_as
 
     @property
     def shape(self):
         return self.t.shape
 
     def __getitem__(self, i):
-        return _gather(self.t[i], self.axes)
+        if self.wrap_as is None:
+            return _gather(self.t[i], self.axes)
+        return _SplitWeight(_gather(self.t[i].to(self.wrap_as), self.axes), dtype=self.wrap_as)
 
 
 class _LocalLookup:
@@ -979,15 +1381,31 @@ class _FsdpModel:
     Without it DTensor keeps the contraction dims sharded and gathers
     the activations instead, replicating the batch on every device.
 
-    With ``local_lookup``, the embedding table is a ``_LocalLookup``."""
+    With ``local_lookup``, the embedding table is a ``_LocalLookup``.
+    A step without autograd (``kind`` "prefill" or "decode") runs each
+    product on the device's shards (``_SplitWeight``, tensor parallel
+    over the model axis), a prefill's parameters gathered in the model's
+    dtype, in which the model uses every such parameter (the cast of a
+    shard is the shard of the cast); a decode step gathers nothing: each
+    parameter sharded over the FSDP axes is a ``_SplitWeight`` where it
+    lies."""
 
-    def __init__(self, model, axes: Tuple[str, ...], local_lookup: bool):
+    def __init__(self, model, axes: Tuple[str, ...], local_lookup: bool, kind: str = "train"):
         self._model = model
         self._axes = tuple(axes)
         self._local_lookup = local_lookup
+        self._split = kind == "decode"
+        self._local_products = kind != "train"
 
     def __getattr__(self, name):
         return getattr(self._model, name)
+
+    def _fsdp_sharded(self, t) -> bool:
+        from torch.distributed.tensor import DTensor, Shard
+
+        return isinstance(t, DTensor) and any(
+            isinstance(p, Shard) and n in self._axes
+            for n, p in zip(t.device_mesh.mesh_dim_names, t.placements))
 
     def _params(self, params):
         pairs, treedef = tree_flatten_with_path(params)
@@ -995,8 +1413,14 @@ class _FsdpModel:
         for path, t in pairs:
             name = str(getattr(path[-1], "key", ""))
             top = str(getattr(path[0], "key", ""))
-            if top in _STACKS:
-                leaves.append(_StackGather(t, self._axes))
+            dtype = self._model.dtype
+            wrap = self._local_products and self._fsdp_sharded(t)
+            if self._split:
+                leaves.append(_SplitWeight(t, dtype=dtype) if wrap else t)
+            elif top in _STACKS:
+                leaves.append(_StackGather(t, self._axes, dtype if wrap else None))
+            elif wrap:
+                leaves.append(_SplitWeight(_gather(t.to(dtype), self._axes), dtype=dtype))
             elif name == "table" and self._local_lookup:
                 leaves.append(_LocalLookup(t, self._axes))
             else:
@@ -1013,6 +1437,20 @@ class _FsdpModel:
 # --- per-pair dry run ------------------------------------------------------------------
 _REGROUPED = ("regrouped: each device's query heads and the kv heads they read, "
               "KV caches as cache_specs shard them")
+_GATHERED_WEIGHTS = "FSDP: each layer's parameters all-gathered over the data axes when it runs"
+_SPLIT_WEIGHTS = ("split: no parameter moves; each product on the shards a device holds, its "
+                  "partial activations summed over the axes that split the contraction")
+_SPLIT_LOOKUP = "split: a masked lookup in the rows a device holds, summed over the model axis"
+_SPLIT_HEAD = ("vocabulary-parallel: the logits left split over the model axis (a greedy "
+               "pick is a max over the shards)")
+_SPLIT_EXPERTS = ("expert-parallel with d_model slices: every token routed (the batch's "
+                  "capacity), each device its experts' d_model slice, partial products summed "
+                  "over the data axes")
+_PER_HEAD_SSD = ("per-head Mamba block: in_proj's columns of each device's heads, the scan on "
+                 "its heads (the (P, N) state stays on it), out_proj summed over the model axis")
+_TP_PRODUCTS = ("tensor-parallel: each product on the gathered layer's model-axis shard "
+                "(column then row parallel: the FFN's hidden units and the heads stay on their "
+                "device, the row-parallel outputs summed over the model axis)")
 
 
 def lower_pair(
@@ -1056,14 +1494,18 @@ def lower_pair(
         param_axes, opt_axes = fsdp_axes, fsdp_axes
     meta["sharding"] = sharding_mode
 
-    # the step's model gathers FSDP-sharded parameters layer by layer
+    # train and prefill gather FSDP-sharded parameters layer by layer; a
+    # decode step leaves them where they lie and moves activations
     model_size = mesh.shape.get("model", 1)
     support = _adapt_dtensor(mesh) if mesh.size > 1 else _DTensorSupport(True, True)
     step_model = model
+    split = mesh.size > 1 and bool(param_axes) and shape.kind == "decode"
     if mesh.size > 1 and param_axes:
         step_model = _FsdpModel(model, param_axes,
-                                local_lookup=not support.embedding_backward)
-        meta["embedding"] = ("DTensor lookup" if support.embedding_backward
+                                local_lookup=not support.embedding_backward, kind=shape.kind)
+        meta["weights"] = _SPLIT_WEIGHTS if split else _GATHERED_WEIGHTS
+        meta["embedding"] = (_SPLIT_LOOKUP if shape.kind != "train"
+                             else "DTensor lookup" if support.embedding_backward
                              else "gathered whole, looked up per device")
     if mesh.size > 1:
         meta["dtensor_flattens_sharded_dims"] = support.flattens_sharded_dims
@@ -1073,10 +1515,20 @@ def lower_pair(
                                  else "whole over the model axis, run per device")
         if shape.kind == "train":
             meta["loss"] = "loss-parallel: the head and the cross-entropy on each device's vocabulary shard"
+        if split:
+            meta["head"] = _SPLIT_HEAD
+            meta["cache_writes"] = "on each device's shard of the cache"
         if cfg.moe is not None:
-            meta["experts"] = ("expert-parallel: buffers (E / model, capacity of the data "
+            meta["experts"] = (_SPLIT_EXPERTS if split
+                               else "expert-parallel: buffers (E / model, capacity of the data "
                                "shard, d)" if cfg.moe.num_experts % model_size == 0
                                else "every expert on every device")
+        if cfg.ssm is not None and shape.kind != "decode":
+            meta["ssd"] = (_PER_HEAD_SSD if shape.kind == "prefill" else
+                           "per-head scan: each device scans its heads; the (P, N) state "
+                           "stays on it (the rest of the block on DTensor's plan)")
+        if shape.kind == "prefill":
+            meta["products"] = _TP_PRODUCTS
     fake = FakeTensorMode(allow_non_fake_inputs=True)
     with fake:
         if shape.kind == "train":
@@ -1153,7 +1605,16 @@ def extrapolated_analysis(arch: str, shape_name: str, mesh: Mesh,
     units is traced whole.  One full-width layer of a 32k prefill is tens
     of thousands of operations, so tracing 61 of them is what this
     avoids.  (Not from one unit: under DTensor a stack of one lays its
-    cache out otherwise, off the line.)"""
+    cache out otherwise, off the line.)
+
+    Collectives move each unit's weights and activations once, so they
+    are affine in the units: a train step takes their slope from its two
+    deepest traces, where DTensor's plan has settled (its plan for 2
+    units may differ, and the square term would scale that by
+    m (m - 1) / 2).  ``coll_body_once`` is the collective count with
+    each stack's unit counted once, c(n) - (n - 1) slope, as the
+    reference's HLO text lists a scanned stack's loop body once (None
+    where a stack was traced whole)."""
     cfg = cfg or get_config(arch)
     knobs = depth_knobs(cfg)
     order = 2 if INPUT_SHAPES[shape_name].kind == "train" else 1
@@ -1162,9 +1623,11 @@ def extrapolated_analysis(arch: str, shape_name: str, mesh: Mesh,
     out = {"meta": base["meta"], "flops": base["flops"], "bytes": base["bytes"],
            "coll": dict(base["coll"]), "by_shape": dict(base["by_shape"]),
            "memory": dict(base["memory"])}
+    slopes: Optional[List[Tuple[int, Dict[str, float]]]] = []
 
     for knob, (n, _) in knobs.items():
         if n == base_units[knob]:
+            slopes = None
             continue
         points = [base] + [
             _compile_at(arch, shape_name, mesh,
@@ -1181,13 +1644,26 @@ def extrapolated_analysis(arch: str, shape_name: str, mesh: Mesh,
         out["bytes"] += delta[1]
         for attr, d in zip(_MEM_ATTRS, delta[2:]):
             out["memory"][attr] += d
+        # collectives: affine through the two deepest traces
+        affine = [-m, m] if order == 1 else [-1, 2 - m, m - 1]
         for field in ("coll", "by_shape"):
             for key in set().union(*(c[field] for c in points)):
-                d = sum(w * c[field].get(key, 0) for w, c in zip(weights, points))
+                d = sum(w * c[field].get(key, 0) for w, c in zip(affine, points))
                 out[field][key] = out[field].get(key, 0) + d
+        if slopes is not None:
+            slopes.append((n, {kind: points[-1]["coll"].get(kind, 0)
+                               - points[-2]["coll"].get(kind, 0)
+                               for kind in set(points[-1]["coll"]) | set(points[-2]["coll"])}))
     out["memory"]["temp_size_in_bytes"] = max(out["memory"]["temp_size_in_bytes"], 0)
     out["depth"] = {k: n for k, (n, _) in knobs.items()}
     out["traced_depth"] = base_units
+    out["coll_body_once"] = None
+    if slopes is not None:
+        body = dict(out["coll"])
+        for n, slope in slopes:
+            for kind, d in slope.items():
+                body[kind] = body.get(kind, 0) - (n - 1) * d
+        out["coll_body_once"] = body
     return out
 
 
@@ -1211,6 +1687,7 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
             "flops": float(counts["flops"]),
             "bytes_accessed": float(counts["bytes"]),
             "collective_bytes": coll,
+            "collective_bytes_body_once": counts["coll_body_once"],
             "top_collectives": _top_collectives(counts["by_shape"]),
             "memory": _mem_dict(MemoryAnalysis(**counts["memory"])),
         }
