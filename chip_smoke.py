@@ -152,14 +152,19 @@ script exits non-zero without a result line:
                    train_4k and long_500k, kimi-k2 prefill_32k,
                    mamba2-780m decode_32k and prefill_32k, zamba2-1.2b
                    train_4k, internvl2-26b prefill_32k, seamless
-                   decode_32k and llama4-maverick decode_32k; per-device
+                   decode_32k, llama4-maverick decode_32k and
+                   mistral-large-123b train_4k; per-device
                    memory, FLOPs, bytes and collective bytes (the largest
                    by shape; also with each layer stack's unit counted
                    once, as the reference's HLO lists a scanned loop's
                    body once), the routes, whether the per-device bytes
                    fit the card, beside the reference's
                    (``DRYRUN_REFERENCE``); train pairs must show
-                   collective traffic, every pair that fits in the
+                   collective traffic, none that no region asked for but
+                   scalars (``DRYRUN_OUTSIDE_REGIONS_BYTES``, DTensor's
+                   own plan), and at most the reference's collective
+                   bytes with each stack's unit counted once
+                   (``DRYRUN_TRAIN_BODY_ONCE``), every pair that fits in the
                    reference must fit in the port, and each serving pair
                    must keep within its bounds against the reference
                    (``DRYRUN_DECODE_*``, ``DRYRUN_PREFILL_BOUNDS``).
@@ -324,19 +329,26 @@ DRYRUN_PAIRS = [("gemma-7b", "train_4k"), ("kimi-k2-1t-a32b", "prefill_32k"),
                 ("mamba2-780m", "decode_32k"), ("zamba2-1.2b", "train_4k"),
                 ("internvl2-26b", "prefill_32k"), ("seamless-m4t-large-v2", "decode_32k"),
                 ("gemma-7b", "long_500k"), ("llama4-maverick-400b-a17b", "decode_32k"),
-                ("mamba2-780m", "prefill_32k")]
+                ("mamba2-780m", "prefill_32k"), ("mistral-large-123b", "train_4k")]
 DRYRUN_TIMEOUT_S = 480
-# the routes a dry-run record names (``lower_pair``'s meta)
+# the routes a dry-run record names (``lower_pair``'s meta, and the routes its
+# regions took)
 DRYRUN_ROUTES = ("weights", "embedding", "attention", "head", "cache_writes", "loss",
-                 "experts", "ssd", "products")
+                 "experts", "ssd", "products", "norms", "optimizer")
+# a train step's collectives that no region asked for (DTensor's own plan):
+# scalars only, each at most this many bytes a device; its collective bytes with
+# each stack's unit counted once (as the reference's HLO lists a loop body) at
+# most this multiple of the reference's
+DRYRUN_OUTSIDE_REGIONS_BYTES = 1024
+DRYRUN_TRAIN_BODY_ONCE = 1.0
 # the serving pairs' bounds against the reference (tests/test_torch_dryrun_serve.py's):
 # a decode step's collective bytes within 4x the reference's or 16 MB, whichever is
 # larger, its per-device bytes within 2x or 0.25 GB; a prefill's collective bytes and
 # per-device bytes within the ratios given: mamba2-780m's collectives 4x, internvl2's
-# 10x, and no ratio above PR 21's on torch 2.13 (kimi-k2 13.0x and 0.70x, internvl2's
-# memory 0.74x, mamba2's 1.02x)
+# 10x, internvl2's memory 0.74x and mamba2's 1.02x, kimi-k2's collectives 8.0x (its
+# experts' gate and up products on their d_model slices read 7.92x) and memory 0.70x
 DRYRUN_DECODE_COLLECTIVE, DRYRUN_DECODE_MEMORY = (4.0, 16e6), (2.0, 0.25e9)
-DRYRUN_PREFILL_BOUNDS = {"kimi-k2-1t-a32b": {"collective": 13.0, "memory": 0.70},
+DRYRUN_PREFILL_BOUNDS = {"kimi-k2-1t-a32b": {"collective": 8.0, "memory": 0.70},
                          "internvl2-26b": {"collective": 10.0, "memory": 0.74},
                          "mamba2-780m": {"collective": 4.0, "memory": 1.02}}
 # profiled prefills: sessions tried for a profile that holds every kernel launched
@@ -378,6 +390,9 @@ DRYRUN_REFERENCE = {
     ("mamba2-780m", "prefill_32k"): {"argument": 31654912, "output": 3217920,
                                      "temp": 15697766456, "alias": 0,
                                      "collective": 16746165376},
+    ("mistral-large-123b", "train_4k"): {"argument": 5052465864, "output": 2061495304,
+                                         "temp": 429499240280, "alias": 1950352072,
+                                         "collective": 100080213632},
 }
 
 
@@ -2845,7 +2860,12 @@ def run_dryrun(torch, dev, smi):
             ref = DRYRUN_REFERENCE[(arch, shape)]
             ref_bytes = ref["argument"] + ref["output"] + ref["temp"] - ref["alias"]
             fits, ref_fits = per_device <= card_bytes, ref_bytes <= card_bytes
-            body_once = sum((rec.get("collective_bytes_body_once") or {}).values())
+            # each stack's unit once; a record whose stacks were traced whole
+            # has no body-once count, and its full count stands in (it is larger)
+            body_once = sum((rec["collective_bytes_body_once"]
+                             if rec.get("collective_bytes_body_once") is not None
+                             else rec["collective_bytes"]).values())
+            outside_largest = rec.get("largest_collective_outside_regions")
             emit("dryrun", arch=arch, shape=shape, mesh=rec["mesh"], kind=rec["kind"],
                  depth=rec["depth"], traced_depth=rec["traced_depth"],
                  **{route: rec.get(route) for route in DRYRUN_ROUTES},
@@ -2853,6 +2873,8 @@ def run_dryrun(torch, dev, smi):
                  flops_per_device=rec["flops"], bytes_per_device=rec["bytes_accessed"],
                  collective_bytes=rec["collective_bytes"],
                  collective_bytes_body_once=body_once,
+                 collectives_outside_regions=rec.get("collectives_outside_regions"),
+                 largest_collective_outside_regions=outside_largest,
                  top_collectives=rec.get("top_collectives"), memory=mem,
                  per_device_bytes=per_device, card_bytes=card_bytes, fits_card=fits,
                  reference_per_device_bytes=ref_bytes, reference_fits_card=ref_fits,
@@ -2867,11 +2889,19 @@ def run_dryrun(torch, dev, smi):
                   f"dryrun: {arch} x {shape} counted {numbers}")
             check(rec["kind"] != "train" or coll > 0,
                   f"dryrun: the train pair {arch} x {shape} shows no collective traffic")
+            check(rec["kind"] != "train" or (outside_largest is not None
+                                             and outside_largest <= DRYRUN_OUTSIDE_REGIONS_BYTES),
+                  f"dryrun: the train pair {arch} x {shape} ran a collective of "
+                  f"{outside_largest} B a device that no region asked for")
             # the port fits wherever the reference does (a verdict apart from
             # the reference's is then one where the port holds less than it)
             check(fits or not ref_fits,
                   f"dryrun: {arch} x {shape} needs {per_device:.4g} B a device, over the "
                   f"card's {card_bytes}, where the reference's {ref_bytes:.4g} B fit")
+            check(rec["kind"] != "train"
+                  or body_once <= DRYRUN_TRAIN_BODY_ONCE * ref["collective"],
+                  f"dryrun: the train pair {arch} x {shape} moves {body_once:.4g} B with each "
+                  f"stack's unit once, over {DRYRUN_TRAIN_BODY_ONCE}x the reference's")
             if rec["kind"] == "decode":
                 (c_ratio, c_floor), (m_ratio, m_floor) = (DRYRUN_DECODE_COLLECTIVE,
                                                           DRYRUN_DECODE_MEMORY)

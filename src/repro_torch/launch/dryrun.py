@@ -27,14 +27,25 @@ port's FLOPs read 1.4-1.7x XLA's at the smoke shape.
 On a sharded mesh the step runs the plan a sharded program runs, not
 DTensor's replicated defaults (``_FsdpModel``, ``_substituted``):
 
-  * train: parameters all-gathered over the FSDP axes layer by layer;
-    attention on each device's query heads and the kv heads they read;
-    the head and the cross-entropy on each device's vocabulary shard; MoE
-    experts where they are held, each device filling buffers for its
-    experts from its data shard's tokens;
-  * prefill: the same gathers, in the model's dtype, and every product
-    on the model-axis shard a device holds (``_SplitWeight``): column
-    then row parallel, a Mamba block on each device's heads;
+  * train and prefill: parameters all-gathered over the FSDP axes layer
+    by layer, in the model's dtype, when a product takes them (under
+    ``remat`` again in the backward pass); every product on the
+    model-axis shard a device holds (``_SplitWeight``): column then row
+    parallel; the embedding a masked lookup in the rows a device holds;
+    attention on each device's query heads and the kv heads they read; a
+    Mamba block on each device's heads; MoE experts where they are held,
+    each device filling buffers for its experts from its data shard's
+    tokens (a prefill's gate and up products on the experts' d_model
+    slices, a train step's experts gathered: ``_expert_parallel``);
+  * train: the head and the cross-entropy on each device's vocabulary
+    shard, the norms on each device's rows, and the backward pass as the
+    regions specify it (each gradient's placements named where it is
+    made, each sum written as a collective of the region's), down to the
+    parameters' reduce-scatters; the gradient clip's and the optimizer's
+    sums and means on each device's shards.  What DTensor's sharding
+    propagation moves by itself is counted apart
+    (``collectives_outside_regions``): in a train step nothing but
+    scalars;
   * decode: no parameter moves.  Each product contracts on the shards a
     device holds and sums its partial activations over the axes that
     split the contraction (``_split_product``), the embedding is a
@@ -64,6 +75,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import array
 import contextlib
 import dataclasses
 import functools
@@ -171,6 +183,9 @@ class _Counter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.collectives: Dict[Tuple[str, torch.dtype, Tuple[int, ...]], int] = {}
+        # the collectives issued while no region is active: DTensor's own plan
+        self.outside: Dict[Tuple[str, torch.dtype, Tuple[int, ...]], int] = {}
+        self.routes: Dict[str, str] = {}     # the route a region took, by meta key
         self.paused = 0
         self.times = 1
         self.args = argument_storages
@@ -179,6 +194,13 @@ class _Counter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.largest = 0
+        self.timeline = array.array("q")    # the live bytes after each allocation
+        # where each unit of a layer stack starts running: (its function,
+        # in the backward pass, the allocations before it)
+        self.marks: List[Tuple[str, bool, int]] = []
+
+    def mark(self, unit: str, backward: bool) -> None:
+        self.marks.append((unit, backward, len(self.timeline)))
 
     @contextlib.contextmanager
     def repeat(self, n: int):
@@ -195,6 +217,8 @@ class _Counter(TorchDispatchMode):
         for t in _tensors(out):
             key = (kind, t.dtype, tuple(t.shape))
             self.collectives[key] = self.collectives.get(key, 0) + self.times
+            if not _REGION_DEPTH[0]:
+                self.outside[key] = self.outside.get(key, 0) + self.times
 
     def _release(self, key: int) -> None:
         self.refs[key] -= 1
@@ -211,6 +235,7 @@ class _Counter(TorchDispatchMode):
             self.refs[key] = 0
             self.sizes[key] = storage.nbytes()
             self.live += self.sizes[key]
+            self.timeline.append(self.live)
             self.peak = max(self.peak, self.live)
             self.largest = max(self.largest, self.sizes[key])
         self.refs[key] += 1
@@ -400,6 +425,146 @@ def _counted_chunked_attention(counter: _Counter):
 # never ask DTensor to flatten a batch and a head dim both sharded, which some
 # torch versions refuse.  The values are never computed (fake tensors), so the
 # regions are held to the plain functions by their shapes and placements.
+#
+# Under autograd a region specifies its backward too: its entries (``_to_local``)
+# name the placements of each local gradient, its exits (``_from_local``) and
+# moves (``_moved``) bring a gradient back to the placements their input had,
+# each through an autograd function of its own, so that no gradient reaches
+# DTensor's sharding propagation in placements it would have to move.  A
+# gradient that an entry leaves partial where its input was replicated (a
+# column-parallel product's input, a weight's data shards) is summed where it
+# was made: at the exit of the region that made it, or by the parameter's
+# reduce-scatter (``_gather``).  A collective issued while no region is active
+# is DTensor's own plan, counted apart (``collectives_outside_regions``).
+_REGION_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def _in_region():
+    _REGION_DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        _REGION_DEPTH[0] -= 1
+
+
+@contextlib.contextmanager
+def _dtensor_plan():
+    """A region's fallback to the plain function on DTensors: what it
+    issues is DTensor's own plan."""
+    depth = _REGION_DEPTH[0]
+    _REGION_DEPTH[0] = 0
+    try:
+        yield
+    finally:
+        _REGION_DEPTH[0] = depth
+
+
+def _region(fn):
+    """``fn`` counted as a region: the collectives it issues are its own."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with _in_region():
+            return fn(*args, **kwargs)
+    return run
+
+
+def _replicated_for_grad(placements) -> list:
+    """``placements`` with each Partial read as Replicate (a gradient's)."""
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate() if p.is_partial() else p for p in placements]
+
+
+class _Moved(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``; its gradient is brought
+    back to the input's placements (a Partial there read as Replicate).
+    With ``defer``, a gradient partial where the input was replicated stays
+    partial, to be summed where the input was made."""
+
+    @staticmethod
+    def forward(ctx, t, placements, defer):
+        ctx.back, ctx.defer = tuple(t.placements), defer
+        if tuple(t.placements) == tuple(placements):
+            return t.view_as(t)
+        return t.redistribute(t.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Replicate
+
+        target = [g if ctx.defer and g.is_partial() and isinstance(b, Replicate) else
+                  Replicate() if b.is_partial() else b
+                  for g, b in zip(grad.placements, ctx.back)]
+        if list(grad.placements) != target:
+            with _in_region():
+                grad = grad.redistribute(grad.device_mesh, target)
+        return grad, None, None
+
+
+def _moved(t, placements, defer: bool = True):
+    return _Moved.apply(t, tuple(placements), defer)
+
+
+class _Whole:
+    """The mesh dims on which every device computes the whole of a
+    product (neither factor split there), and whether its output's
+    gradient arrived partial on each: set by the output's ``_Exit`` in
+    the backward pass, read by the factors' ``_Entry``s after it, so that
+    the factors' gradients keep the form the output's came in (a partial
+    one summed once, where the factor was made, a whole one not at all)."""
+
+    def __init__(self, dims):
+        self.dims, self.partial = tuple(dims), {}
+
+
+class _Entry(torch.autograd.Function):
+    """A DTensor's local shard, its gradient read as ``placements`` but on
+    the dims of ``whole``, where it is partial as the product's output's
+    gradient arrived."""
+
+    @staticmethod
+    def forward(ctx, t, placements, whole):
+        ctx.mesh, ctx.placements, ctx.whole = t.device_mesh, placements, whole
+        ctx.shape, ctx.stride = t.shape, t.stride()
+        return t.to_local()
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        pl = [(Partial() if ctx.whole.partial.get(i) else Replicate()) if i in ctx.whole.dims
+              else p for i, p in enumerate(ctx.placements)]
+        return DTensor.from_local(grad, ctx.mesh, pl, run_check=False, shape=ctx.shape,
+                                  stride=ctx.stride), None, None
+
+
+class _Exit(torch.autograd.Function):
+    """A DTensor of even local shards; its gradient is brought to its
+    placements (a Partial read as Replicate: the sum of a partial
+    gradient) before its local shard is taken, but on the dims of
+    ``whole`` (``_Whole``), where it stays as it came."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, placements, whole):
+        from torch.distributed.tensor import DTensor
+
+        ctx.placements, ctx.whole = _replicated_for_grad(placements), whole
+        return DTensor.from_local(local, mesh, placements, run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dims = ctx.whole.dims if ctx.whole is not None else ()
+        target = [g if i in dims and (g.is_partial() or g.is_replicate()) else p
+                  for i, (g, p) in enumerate(zip(grad.placements, ctx.placements))]
+        if list(grad.placements) != target:
+            with _in_region():
+                grad = grad.redistribute(grad.device_mesh, target)
+        if dims:
+            ctx.whole.partial = {i: grad.placements[i].is_partial() for i in dims}
+        return grad.to_local(), None, None, None
+
+
 def _mesh_dims(t) -> Tuple[List[str], Optional[int]]:
     """The mesh's dim names and the index of its "model" dim (or None)."""
     names = list(t.device_mesh.mesh_dim_names)
@@ -426,20 +591,25 @@ def _batch_placements(t, model) -> list:
     return out
 
 
-def _to_local(t, placements, grad_placements=None) -> torch.Tensor:
+def _to_local(t, placements, grad_placements=None, whole: Optional[_Whole] = None
+              ) -> torch.Tensor:
     """``t`` laid out as ``placements`` (a redistribution where it is not),
-    as its local shard; its gradient comes back as ``grad_placements``."""
+    as its local shard; its local gradient is read as ``grad_placements``
+    (default ``placements``), on the dims of ``whole`` as ``_Entry``
+    reads it."""
     if list(t.placements) != list(placements):
-        t = t.redistribute(t.device_mesh, placements)
-    return t.to_local(grad_placements=grad_placements or placements)
+        t = _moved(t, placements)
+    grad_placements = tuple(grad_placements or placements)
+    if whole is not None and whole.dims:
+        return _Entry.apply(t, grad_placements, whole)
+    return t.to_local(grad_placements=grad_placements)
 
 
-def _from_local(local: torch.Tensor, mesh, placements, shape):
+def _from_local(local: torch.Tensor, mesh, placements, shape, whole: Optional[_Whole] = None):
     """A DTensor of global ``shape`` from even local shards (their
-    strides kept)."""
-    from torch.distributed.tensor import DTensor
-
-    out = DTensor.from_local(local, mesh, placements, run_check=False)
+    strides kept); its gradient kept as it comes on the dims of ``whole``
+    (``_Exit``)."""
+    out = _Exit.apply(local, mesh, tuple(placements), whole)
     if tuple(out.shape) != tuple(shape):
         raise ValueError(f"local {tuple(local.shape)} as {placements} is "
                          f"{tuple(out.shape)}, not {tuple(shape)}")
@@ -458,9 +628,13 @@ def _local_rows(x, like, placements) -> torch.Tensor:
     return whole.redistribute(like.device_mesh, placements).to_local()
 
 
-def _reduce_over_model(local: torch.Tensor, like, op: str = "sum") -> torch.Tensor:
+def _reduce_over_model(local: torch.Tensor, like, op: str = "sum",
+                       partial_grad: bool = False) -> torch.Tensor:
     """``local``'s sum (or max) over the model dim of ``like``'s mesh,
-    an all-reduce; ``local`` is laid out as ``like``'s batch."""
+    an all-reduce; ``local`` is laid out as ``like``'s batch.  With
+    ``partial_grad`` the sum's gradient is each device's share (it feeds
+    the device's own channels), summed over the model dim in the
+    backward pass."""
     from torch.distributed.tensor import Partial, Replicate
 
     names, mi = _mesh_dims(like)
@@ -468,7 +642,8 @@ def _reduce_over_model(local: torch.Tensor, like, op: str = "sum") -> torch.Tens
         return local
     partial = _batch_placements(like, Partial(op))
     whole = _from_local(local, like.device_mesh, partial, _global_shape(local, like, partial))
-    return _to_local(whole, _batch_placements(like, Replicate()))
+    return _to_local(whole, _batch_placements(like, Replicate()),
+                     _batch_placements(like, Partial()) if partial_grad else None)
 
 
 def _reduce_over(local: torch.Tensor, mesh, dims: List[int], op: str = "sum") -> torch.Tensor:
@@ -516,7 +691,7 @@ def _regrouped_locals(q, k, v):
     kv_pl = _batch_placements(q, Shard(2) if split and g % m == 0 else Replicate())
     # a kv head read by several devices' queries takes their gradients' sum
     kv_grad = list(kv_pl)
-    if mi is not None and not isinstance(kv_pl[mi], Shard):
+    if mi is not None and split and not isinstance(kv_pl[mi], Shard):
         kv_grad[mi] = Partial()
     ql = _to_local(q, q_pl)
     kl, vl = (_to_local(t, kv_pl, kv_grad) if isinstance(t, DTensor) else _local_rows(t, q, kv_pl)
@@ -634,19 +809,36 @@ def _loss_parallel(fn):
         over_batch = [Partial() if isinstance(p, Shard) else Replicate()
                       for p in _batch_placements(logits, Replicate())]
         loss = _from_local(nll, logits.device_mesh, over_batch, ())
-        return loss.redistribute(logits.device_mesh, [Replicate()] * len(over_batch))
+        return _moved(loss, [Replicate()] * len(over_batch))
 
     return lm_loss
 
 
-def _expert_parallel(fn):
+def _expert_parallel(fn, routes: Dict[str, str], sliced: bool):
     """``apply_moe`` with each device's experts on that device: every
     device routes its data shard's tokens (the capacity is the shard's,
     as GShard's groups take it), fills buffers (E / model, cap, d) for the
     experts it holds, runs them and combines their outputs, and runs its
     slice of the shared expert's hidden units; the output is the sum over
     the model dim.  Where the experts do not split over the model dim,
-    every device runs them all."""
+    every device runs them all.  The experts' weights:
+
+      * gathered: all-gathered over the data axes (FSDP), their gradients
+        reduce-scattered;
+      * sliced (with ``sliced``, where ``_d_model_slices`` finds the
+        slices; no autograd): ``w_gate`` and ``w_up`` stay on their
+        d_model slices: every data shard's buffers move to the devices
+        that hold those slices (an all-to-all over the data axes, each
+        device its slice of every shard's slots), and the partial
+        products are reduce-scattered back onto the shard whose tokens
+        they are; ``w_down`` is gathered.
+
+    A prefill takes the sliced route and a train step the gathered one:
+    each the route that moved the fewer bytes there by the dry run's count
+    on kimi-k2's and llama4's full-width pairs.  A decode step (its
+    weights not gathered) keeps every expert where it lies
+    (``_expert_parallel_decode``).  The route taken goes into ``routes``
+    under "experts"."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.models import moe
@@ -657,8 +849,8 @@ def _expert_parallel(fn):
         act = torch.nn.functional.silu if activation == "silu" else moe._gelu_tanh
         m, rank = _model_size_and_rank(x)
         names, mi = _mesh_dims(x)
-        if any(isinstance(p, Shard) for i, p in enumerate(_unwrapped(params["w_gate"]).placements)
-               if i != mi):
+        if isinstance(params["w_gate"], _SplitWeight) and not params["w_gate"].axes:
+            routes["experts"] = _SPLIT_EXPERTS
             return _expert_parallel_decode(params, x, cfg, act)    # d_model still split
         n = len(names)
         E = cfg.num_experts
@@ -682,17 +874,28 @@ def _expert_parallel(fn):
         xl = _to_local(x, x_pl, x_grad)
         b, s, d = xl.shape
         xt = xl.reshape(b * s, d)
-        router = weights(params["router"], Replicate(), Partial())
+        # every model rank routes every token; its experts' share of the
+        # gradient is its own (and the aux loss is counted 1 / m on each)
+        router = weights(params["router"], Replicate(), Partial() if split else None)
         gate_vals, flats, valids, aux, cap = moe.route({"router": router}, xt, cfg)
         if split:
             valids = [valid & (flat >= lo * cap) & (flat < (lo + held) * cap)
                       for flat, valid in zip(flats, valids)]
             flats = [torch.clamp(flat - lo * cap, 0, held * cap - 1) for flat in flats]
-        wg, wu, wd = (weights(params[k], Shard(0) if split else Replicate())
-                      for k in ("w_gate", "w_up", "w_down"))
         ex_in = moe.dispatch(xt, flats, valids, held, cap)
-        gate = act(torch.bmm(ex_in, wg.to(xt.dtype)))
-        up = torch.bmm(ex_in, wu.to(xt.dtype))
+        slices = _d_model_slices(params["w_gate"], batch, mi) if sliced and split else None
+        routes["experts"] = (_EXPERT_ROUTES["sliced" if slices is not None else "gathered"]
+                             if split else "every expert on every device")
+        if slices is not None:
+            gate, up = _sliced_products(ex_in, [params[k] for k in ("w_gate", "w_up")],
+                                        batch, mi, slices)
+            gate = act(gate)
+        else:
+            wg, wu = (weights(params[k], Shard(0) if split else Replicate())
+                      for k in ("w_gate", "w_up"))
+            gate = act(torch.bmm(ex_in, wg.to(xt.dtype)))
+            up = torch.bmm(ex_in, wu.to(xt.dtype))
+        wd = weights(params["w_down"], Shard(0) if split else Replicate())
         ex_out = torch.bmm(gate * up, wd.to(xt.dtype)).reshape(held * cap, d)
         out = moe.combine(ex_out, gate_vals, flats, valids)
         if "shared" in params:
@@ -701,22 +904,63 @@ def _expert_parallel(fn):
             # the experts; where they cannot, the whole of it on model rank 0
             hidden = split and sh["w_gate"].shape[1] % m == 0
             col, row = (Shard(1), Shard(0)) if hidden else (Replicate(), Replicate())
-            g = act(xt @ weights(sh["w_gate"], col).to(xt.dtype))
-            u = xt @ weights(sh["w_up"], col).to(xt.dtype)
-            y = (g * u) @ weights(sh["w_down"], row, Partial() if split else None).to(xt.dtype)
+            on_rank0 = Partial() if split and not hidden else None
+            g = act(xt @ weights(sh["w_gate"], col, on_rank0).to(xt.dtype))
+            u = xt @ weights(sh["w_up"], col, on_rank0).to(xt.dtype)
+            y = (g * u) @ weights(sh["w_down"], row, on_rank0).to(xt.dtype)
             out = out + (y if hidden or not split or rank == 0 else torch.zeros_like(y))
         out_pl = list(x_pl)
         if split:
             out_pl[mi] = Partial()
-        out = _from_local(out.reshape(b, s, d), x.device_mesh, out_pl, x.shape)
-        if not torch.is_grad_enabled():     # summed once here, not once per reader
-            out = out.redistribute(x.device_mesh, x_pl)
-        shards = math.prod(x.device_mesh.size(i) for i in batch)
-        aux_pl = [Partial() if i in batch else Replicate() for i in range(n)]
+        out = _moved(_from_local(out.reshape(b, s, d), x.device_mesh, out_pl, x.shape), x_pl)
+        shards = math.prod(x.device_mesh.size(i) for i in batch + ([mi] if split else []))
+        aux_pl = [Partial() if i in batch or split and i == mi else Replicate() for i in range(n)]
         aux = _from_local(aux / shards, x.device_mesh, aux_pl, ())
-        return out, aux.redistribute(x.device_mesh, [Replicate()] * n)
+        return out, _moved(aux, [Replicate()] * n)
 
     return apply_moe
+
+
+def _d_model_slices(w, batch: List[int], mi: int) -> Optional[List[int]]:
+    """The mesh dims over which expert weight ``w`` (a ``_SplitWeight`` of
+    (E, d, F)) splits d_model, where they are the dims that split the
+    batch and ``w`` splits its experts over the model dim; else None."""
+    from torch.distributed.tensor import Shard
+
+    if not isinstance(w, _SplitWeight):
+        return None
+    pl = w.t.placements
+    dims = [i for i, p in enumerate(pl) if p == Shard(1)]
+    if not dims or sorted(dims) != sorted(batch) or pl[mi] != Shard(0):
+        return None
+    return dims
+
+
+def _sliced_products(ex_in, ws, batch: List[int], mi: int, slices: List[int]):
+    """``bmm(ex_in, w)`` for each expert weight ``w`` of ``ws`` on its
+    d_model slices: the data shards' buffers (held, cap, d) move to the
+    devices holding each d_model slice (an all-to-all), each device
+    multiplies every shard's slots by its slice, and the partial sums are
+    reduce-scattered back onto the slots' own shard (a step without
+    autograd)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = ws[0].t.device_mesh
+    shards = math.prod(mesh.size(i) for i in batch)
+    held, cap, d = ex_in.shape
+    slots = [Shard(1) if i in batch else Replicate() for i in range(mesh.ndim)]
+    slots[mi] = Shard(0)
+    buf = _from_local(ex_in, mesh, slots, (held * mesh.size(mi), cap * shards, d))
+    cols = [Shard(2) if i in slices else p for i, p in enumerate(slots)]
+    bl = _to_local(buf, cols)
+    partial = [Partial() if i in slices else p for i, p in enumerate(cols)]
+    outs = []
+    for w in ws:
+        wl = _to_local(w.t.to(ex_in.dtype), w.t.placements)
+        part = torch.bmm(bl, wl)
+        y = _from_local(part, mesh, partial, (held * mesh.size(mi), cap * shards, part.shape[2]))
+        outs.append(_to_local(y, slots))
+    return outs
 
 
 def _vocab_parallel_head(fn):
@@ -728,7 +972,7 @@ def _vocab_parallel_head(fn):
 
     def _lm_head(self, params, x):
         if isinstance(x, DTensor):
-            x = x.redistribute(x.device_mesh, _batch_placements(x, Replicate()))
+            x = _moved(x, _batch_placements(x, Replicate()))
         return fn(self, params, x)
 
     return _lm_head
@@ -737,42 +981,56 @@ def _vocab_parallel_head(fn):
 def _per_head_mamba(fn, ssd_chunked):
     """``apply_mamba_block``'s full-sequence pass on each device's heads
     (they divide over the model dim, as ``in_proj``'s ``("F", "T")``
-    splits them): the device takes ``in_proj``'s columns of its heads' z,
-    x and dt and every column of B and C (the weight gathered whole over
-    the model dim, in the activations' dtype), runs the conv on its
-    channels and ``ssd_chunked`` on its heads, so the (P, N) state stays
-    on it, as attention runs on its query heads; the output norm's mean
-    square and ``out_proj``'s partial sums (its rows are the heads') are
-    summed over the model dim.  ``fn`` runs a decode step."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    splits them): after the input norm, the device takes ``in_proj``'s
+    columns of its heads' z, x and dt and every column of B and C (the
+    weight gathered whole over the model dim, in the activations' dtype),
+    runs the conv on its channels and ``ssd_chunked`` on its heads, so the
+    (P, N) state stays on it, as attention runs on its query heads; the
+    output norm's mean square and ``out_proj``'s partial sums (its rows
+    are the heads') are summed over the model dim.  Under autograd the
+    norm's output takes each device's share of its gradient, summed over
+    the model dim where the norm ran, and a weight read whole takes its
+    partial gradient (the device's heads' columns, B's and C's from its
+    heads).  ``fn`` runs a decode step."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.models import mamba2, nn
 
     def apply_mamba_block(params, x, cfg, cache=None, ssd_impl="xla"):
         d_inner, heads, g, n, _ = mamba2._dims(cfg)
-        if cache is not None or not isinstance(x, DTensor):
-            return fn(params, x, cfg, cache, ssd_impl)
-        m, _ = _model_size_and_rank(x)
-        _, mi = _mesh_dims(x)
-        if mi is None or heads % m:
-            return fn(params, x, cfg, cache, ssd_impl)
+        m, _ = _model_size_and_rank(x) if isinstance(x, DTensor) else (1, 0)
+        _, mi = _mesh_dims(x) if isinstance(x, DTensor) else (None, None)
+        if cache is not None or mi is None or heads % m:
+            with _dtensor_plan():
+                return fn(params, x, cfg, cache, ssd_impl)
         mesh = x.device_mesh
+        grad = torch.is_grad_enabled()
+        whole_pl = [Replicate()] * mesh.ndim
+        # a gradient read whole: partial over the data shards and the heads
+        partial_pl = [Partial() if isinstance(p, Shard) or i == mi else Replicate()
+                      for i, p in enumerate(_batch_placements(x, Replicate()))]
 
         def whole(t):
-            return _to_local(t, [Replicate()] * mesh.ndim) if isinstance(t, DTensor) else t
+            return _to_local(t, whole_pl, partial_pl) if isinstance(t, DTensor) else t
 
         def mine(t, dim):
-            """The device's part of ``t`` (whole on it) along ``dim``: its heads'."""
+            """The device's part of ``t`` (whole on it) along ``dim``: its heads'
+            (under autograd by their indices, so that the gradient of ``t`` is
+            the device's part, zeros elsewhere)."""
             pl = [Replicate()] * mesh.ndim
             pl[mi] = Shard(dim)
-            return _local_rows(t, x, pl)
+            if not grad:
+                return _local_rows(t, x, pl)
+            pl[mi] = Shard(0)
+            return t.index_select(dim, _local_rows(torch.arange(t.shape[dim]), x, pl))
 
         p_ = cfg.ssm.head_dim
         e = heads // m * p_                        # the device's inner channels
-        xl = _to_local(x, _batch_placements(x, Replicate()))
-        b, s, _ = xl.shape
-        h = nn.apply_rmsnorm({"scale": whole(params["norm"]["scale"])}, xl)
-        w_in = whole(_unwrapped(params["in_proj"]).to(xl.dtype))
+        batch_pl = _batch_placements(x, Replicate())
+        h = _to_local(nn.apply_rmsnorm(params["norm"], x), batch_pl,
+                      _batch_placements(x, Partial()))
+        b, s, _ = h.shape
+        w_in = whole(_unwrapped(params["in_proj"]).to(h.dtype))
         dt_at = 2 * d_inner + 2 * g * n
         z, xin, bc, dt = torch.split(h @ torch.cat(
             [mine(w_in[:, :d_inner], 1), mine(w_in[:, d_inner:2 * d_inner], 1),
@@ -793,54 +1051,193 @@ def _per_head_mamba(fn, ssd_chunked):
         y = y + mine(whole(params["D"]), 0)[None, None, :, None].to(y.dtype) * xh
         y = y.reshape(b, s, e) * torch.nn.functional.silu(z)
         y32 = y.float()
-        square = _reduce_over_model(torch.sum(torch.square(y32), dim=-1, keepdim=True), x)
+        square = _reduce_over_model(torch.sum(torch.square(y32), dim=-1, keepdim=True), x,
+                                    partial_grad=grad)
         scale = mine(whole(params["out_norm"]["scale"]), 0)
         y = (y32 * torch.rsqrt(square / d_inner + 1e-6) * scale).to(y.dtype)
         rows = [Replicate()] * mesh.ndim
         rows[mi] = Shard(0)
-        out = xl + _reduce_over_model(
-            y @ _to_local(_unwrapped(params["out_proj"]), rows).to(y.dtype), x)
-        return _from_local(out, mesh, _batch_placements(x, Replicate()), x.shape), None
+        w_out = _unwrapped(params["out_proj"])
+        rows_grad = [Partial() if isinstance(p, Shard) else q for p, q in zip(batch_pl, rows)]
+        part = y @ _to_local(w_out, rows, rows_grad).to(y.dtype)
+        out = _from_local(part, mesh, _batch_placements(x, Partial()), x.shape)
+        return x + _moved(out, batch_pl), None
 
     return apply_mamba_block
 
 
-def _per_head_ssd(fn):
-    """``ssd_chunked`` on each device's heads, for a train step (under
-    autograd; a prefill runs the whole block per head, ``_per_head_mamba``):
-    x, dt and A on the device's heads, B and C whole over the model dim
-    (their gradients the heads' partial sums), the (P, N) state of each
-    head on the device that holds it.  No collective runs inside the scan,
-    and DTensor never flattens the batch and the heads both sharded (which
-    torch 2.11 refuses)."""
+class _RmsNorm(torch.autograd.Function):
+    """``nn.apply_rmsnorm`` that keeps its input and each row's reciprocal
+    RMS for the backward pass (as a fused norm does), not its float32
+    copies."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        x32 = x.float()
+        r = torch.rsqrt(torch.mean(torch.square(x32), dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, scale, r)
+        return (x32 * r * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, r = ctx.saved_tensors
+        x32, dy32 = x.float(), dy.float()
+        g = dy32 * scale
+        dx = r * g - x32 * r ** 3 * torch.mean(g * x32, dim=-1, keepdim=True)
+        dscale = torch.sum((dy32 * x32 * r).reshape(-1, x.shape[-1]), dim=0)
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
+def _local_rmsnorm(fn):
+    """``apply_rmsnorm`` on each device's rows (the normalised dim whole on
+    it), as ``_RmsNorm``: the scale's gradient is the data shards' partial
+    sum, and the output's gradient is summed over the model dim here, once
+    for all the column-parallel products that read it."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-    def ssd_chunked(x, dt, A, Bm, Cm, chunk=128, initial_state=None):
-        if not isinstance(x, DTensor):
-            return fn(x, dt, A, Bm, Cm, chunk, initial_state)
-        m, _ = _model_size_and_rank(x)
-        _, mi = _mesh_dims(x)
-        if mi is None or x.shape[2] % m:
-            return fn(x, dt, A, Bm, Cm, chunk, initial_state)
-        heads = _batch_placements(x, Shard(2))
-        whole = _batch_placements(x, Replicate())
-        whole_grad = _batch_placements(x, Partial())
-        a_pl = [Shard(0) if i == mi else Replicate() for i in range(len(heads))]
-        a_grad = [Shard(0) if i == mi else Partial() if isinstance(p, Shard) else Replicate()
-                  for i, p in enumerate(whole)]
+    def apply_rmsnorm(p, x, eps=1e-6):
+        if not isinstance(x, DTensor) or Shard(x.ndim - 1) in x.placements:
+            with _dtensor_plan():
+                return fn(p, x, eps)
+        pl = list(x.placements)
+        scale = p["scale"]
+        if isinstance(scale, DTensor):
+            scale = _to_local(scale, [Replicate()] * len(pl),
+                              [Partial() if isinstance(q, Shard) else Replicate() for q in pl])
+        y = _RmsNorm.apply(_to_local(x, pl), scale, eps)
+        return _from_local(y, x.device_mesh, pl, x.shape)
 
-        def local(t, pl, grad):
-            return _to_local(t, pl, grad) if isinstance(t, DTensor) else _local_rows(t, x, pl)
+    return apply_rmsnorm
 
-        state_pl = _batch_placements(x, Shard(1))
-        init = None if initial_state is None else local(initial_state, state_pl, state_pl)
-        y, state = fn(local(x, heads, heads), local(dt, heads, heads), local(A, a_pl, a_grad),
-                      local(Bm, whole, whole_grad), local(Cm, whole, whole_grad), chunk, init)
-        b, _, h, p_ = x.shape
-        return (_from_local(y, x.device_mesh, heads, x.shape),
-                _from_local(state, x.device_mesh, state_pl, (b, h, p_, Bm.shape[3])))
 
-    return ssd_chunked
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    """A contiguous tensor's strides for ``shape``, worked out, not
+    allocated (a meta tensor made while a step runs may be counted as the
+    step's memory)."""
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
+def _reduced(func, t, dim=None, keepdim=False, **kwargs):
+    """``func`` (a sum or a mean) of DTensor ``t``: each device's over its
+    shard, summed over the mesh dims that split a reduced dim (an
+    all-reduce), left split as ``t`` over the rest."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    dims = list(range(t.ndim)) if dim is None else [
+        d % t.ndim for d in (dim if isinstance(dim, (list, tuple)) else [dim])]
+    local = torch.sum(t.to_local(), dim=dims, keepdim=keepdim, **kwargs)
+    if getattr(func, "__name__", "") == "mean":
+        local = local / math.prod(t.shape[d] for d in dims)
+    split = [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim in dims]
+    pl = [Partial() if i in split else
+          Shard(p.dim if keepdim else p.dim - sum(d < p.dim for d in dims))
+          if isinstance(p, Shard) else p for i, p in enumerate(t.placements)]
+    shape = [1 if d in dims else n for d, n in enumerate(t.shape) if keepdim or d not in dims]
+    out = DTensor.from_local(local, t.device_mesh, pl, run_check=False, shape=torch.Size(shape),
+                             stride=_contiguous_stride(shape))
+    if not split:
+        return out
+    with _in_region():
+        return out.redistribute(t.device_mesh, _replicated_for_grad(pl))
+
+
+def _elementwise(func, a, b):
+    """``func(a, b)`` (an elementwise operation of two DTensors that
+    broadcast) on each device's shards: each mesh dim keeps the split that
+    one of them has (on a dim the other broadcasts or holds whole, which
+    then takes its slice, moving no byte); None where they split
+    different dims or one is partial."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    ndim = max(a.ndim, b.ndim)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    out = []
+    for pa, pb in zip(a.placements, b.placements):
+        if pa.is_partial() or pb.is_partial():
+            return None
+        dims = {p.dim + ndim - t.ndim for p, t in ((pa, a), (pb, b)) if isinstance(p, Shard)}
+        if len(dims) > 1:
+            return None
+        out.append(Shard(dims.pop()) if dims else Replicate())
+
+    def local(t):
+        pl = [Shard(p.dim - (ndim - t.ndim)) if isinstance(p, Shard)
+              and p.dim >= ndim - t.ndim and t.shape[p.dim - (ndim - t.ndim)] != 1
+              else Replicate() for p in out]
+        if any(isinstance(q, Shard) and q != p for q, p in zip(t.placements, pl)):
+            return None
+        return t.redistribute(t.device_mesh, pl).to_local()
+
+    la, lb = local(a), local(b)
+    if la is None or lb is None:
+        return None
+    y = func(la, lb)
+    return DTensor.from_local(y, a.device_mesh, out, run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def _with_new_axes(t, index):
+    """``t[index]`` for an index of ``...``, ``:`` and ``None`` alone (new
+    axes, every element kept) on each device's shard, its splits kept on
+    the dims they move to (a torch whose DTensor slices a split dim, even
+    whole, gathers it first); None for any other index."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    index = index if isinstance(index, tuple) else (index,)
+    if not all(i is Ellipsis or i is None or i == slice(None) for i in index):
+        return None
+    taken = sum(1 for i in index if i is not None and i is not Ellipsis)
+    moved, out_dim, in_dim = {}, 0, 0
+    for i in index:
+        if i is None:
+            out_dim += 1
+            continue
+        for _ in range(t.ndim - taken if i is Ellipsis else 1):
+            moved[in_dim], in_dim, out_dim = out_dim, in_dim + 1, out_dim + 1
+    for d in range(in_dim, t.ndim):
+        moved[d], out_dim = out_dim, out_dim + 1
+    local = t.to_local()[index]
+    source = {o: d for d, o in moved.items()}
+    shape = tuple(t.shape[source[j]] if j in source else 1 for j in range(local.ndim))
+    pl = [Shard(moved[p.dim]) if isinstance(p, Shard) else p for p in t.placements]
+    return DTensor.from_local(local, t.device_mesh, pl, run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+class _LocalReductions(torch.overrides.TorchFunctionMode):
+    """Without autograd (the gradient clip and the optimizer): sums and
+    means of DTensors as ``_reduced`` (a factored second moment's row and
+    column means, an update's RMS, the global norm), new axes as
+    ``_with_new_axes`` and elementwise operations of two DTensors laid out
+    apart (a replicated factored moment and a gradient's row means, their
+    outer product) as ``_elementwise``, so that DTensor plans none of
+    them."""
+
+    _REDUCTIONS = (torch.sum, torch.mean, torch.Tensor.sum, torch.Tensor.mean)
+    _BINARY = (torch.Tensor.add, torch.Tensor.sub, torch.Tensor.mul, torch.Tensor.div,
+               torch.Tensor.__add__, torch.Tensor.__radd__, torch.Tensor.__sub__,
+               torch.Tensor.__rsub__, torch.Tensor.__mul__, torch.Tensor.__rmul__,
+               torch.Tensor.__truediv__, torch.Tensor.__rtruediv__, torch.add, torch.sub,
+               torch.mul, torch.div, torch.maximum, torch.minimum)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = kwargs or {}
+        if not torch.is_grad_enabled() and args and isinstance(args[0], DTensor):
+            if func in self._REDUCTIONS:
+                return _reduced(func, *args, **kwargs)
+            if func is torch.Tensor.__getitem__:
+                out = _with_new_axes(*args)
+                if out is not None:
+                    return out
+            if (func in self._BINARY and len(args) == 2 and not kwargs
+                    and isinstance(args[1], DTensor) and args[0].placements != args[1].placements
+                    and args[0].ndim and args[1].ndim):
+                out = _elementwise(func, *args)
+                if out is not None:
+                    return out
+        return func(*args, **kwargs)
 
 
 # --- decode with the weights where params_specs puts them -----------------------------
@@ -852,6 +1249,7 @@ def _per_head_ssd(fn):
 # layers ``_SplitWeight``s in place of the FSDP-sharded parameters (a prefill's
 # gathered over the data axes first); the model's own products (``x @ w``,
 # ``torch.einsum``) reach ``_split_product`` through ``__torch_function__``.
+@_region
 def _split_product(equation: str, x, w):
     """``torch.einsum(equation, x, w)`` with ``w`` (a DTensor) where it
     lies.  On each mesh dim: where ``w`` splits a contracted dim, ``x``
@@ -870,8 +1268,17 @@ def _split_product(equation: str, x, w):
         x = _from_local(x, mesh, [Replicate()] * mesh.ndim, x.shape)
     _, mi = _mesh_dims(w)
     x_pl, w_pl, out_pl, target = [], list(w.placements), [], []
+    x_grad, w_grad = [], []
+    # the mesh dims where every device computes the whole product: there
+    # x's and w's gradients take the form the output's comes in (``_Whole``)
+    whole = _Whole(m for m, (pw, px) in enumerate(zip(w.placements, x.placements))
+                   if not isinstance(pw, Shard) and not isinstance(px, Shard))
     for m, (pw, px) in enumerate(zip(w.placements, x.placements)):
         carried = isinstance(px, Shard) and xs[px.dim] in out and xs[px.dim] not in ws
+        # x's gradient partial where w splits an output dim (each device has
+        # its columns' share), w's where x's batch splits
+        x_grad.append(Partial() if isinstance(pw, Shard) and ws[pw.dim] in out else None)
+        w_grad.append(Partial() if carried and not isinstance(pw, Shard) else None)
         if isinstance(pw, Shard) and ws[pw.dim] in out:      # an output dim of w
             x_pl.append(Replicate())
             out_pl.append(Shard(out.index(ws[pw.dim])))
@@ -894,19 +1301,21 @@ def _split_product(equation: str, x, w):
             target.append(out_pl[-1])
         else:
             target.append(Replicate())
-    xl = _to_local(x, x_pl)
-    local = torch.einsum(equation, xl, _to_local(w, w_pl).to(xl.dtype))
-    y = _from_local(local, mesh, out_pl, _global_shape(local, w, out_pl))
-    return y if out_pl == target else y.redistribute(mesh, target)
+    xl = _to_local(x, x_pl, [g or p for g, p in zip(x_grad, x_pl)], whole)
+    wl = _to_local(w, w_pl, [g or p for g, p in zip(w_grad, w_pl)], whole)
+    local = torch.einsum(equation, xl, wl.to(xl.dtype))
+    y = _from_local(local, mesh, out_pl, _global_shape(local, w, out_pl), whole)
+    return y if out_pl == target else _moved(y, target)
 
 
-def _split_lookup(table, tokens, dtype=None):
+@_region
+def _split_lookup(table, tokens):
     """``table[tokens]`` with the table where it lies (rows over the model
     dim where they split, features over the FSDP dims): each device looks
     every token up in the rows it holds, zeros where it holds none, and the
-    rows are summed over the model dim, laid out as the tokens are.  With
-    ``dtype``, the rows of ``table.to(dtype)`` (the same values as the rows
-    cast after the lookup)."""
+    rows are summed over the model dim, laid out as the tokens are.  The
+    table's gradient is each device's rows' partial sum over the mesh dims
+    that split the tokens but not the table."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = table.device_mesh
@@ -916,7 +1325,9 @@ def _split_lookup(table, tokens, dtype=None):
               for p, q in zip(table.placements, tokens.placements)] \
         if isinstance(tokens, DTensor) else [Replicate()] * mesh.ndim
     ids = _to_local(tokens, tok_pl) if isinstance(tokens, DTensor) else tokens
-    tl = table.to_local() if dtype is None else table.to_local().to(dtype)
+    tl = table.to_local(grad_placements=tuple(
+        Partial() if isinstance(p, Replicate) and isinstance(q, Shard) else p
+        for p, q in zip(table.placements, tok_pl)))
     rows = tl.shape[0]
     pl = [Partial() if p == Shard(0) else Shard(ids.ndim) if isinstance(p, Shard) else q
           for p, q in zip(table.placements, tok_pl)]
@@ -929,22 +1340,23 @@ def _split_lookup(table, tokens, dtype=None):
     y = _from_local(looked, mesh, pl, tuple(tokens.shape) + tuple(table.shape[1:]))
     target = ([p if isinstance(p, Shard) else Replicate() for p in tokens.placements]
               if isinstance(tokens, DTensor) else [Replicate()] * mesh.ndim)
-    return y.redistribute(mesh, target)
+    return _moved(y, target)
 
 
 def _unwrapped(t):
-    return t.t if isinstance(t, _SplitWeight) else t
+    return t.gathered() if isinstance(t, _SplitWeight) else t
 
 
 class _SplitWeight:
-    """A parameter left as ``params_specs`` shards it, for a step without
-    autograd: its products run as ``_split_product`` (``x @ w``, ``x @
-    w.T``, ``torch.einsum(eq, x, w)``), a row lookup (``w[tokens]``) as
-    ``_split_lookup``, and ``w[i]`` takes layer i of a stack.  ``.to``
-    records the dtype the local shard is cast to inside the product."""
+    """A parameter left as ``params_specs`` shards it: its products run
+    as ``_split_product`` (``x @ w``, ``x @ w.T``, ``torch.einsum(eq, x,
+    w)``), a row lookup (``w[tokens]``) as ``_split_lookup``, and ``w[i]``
+    takes layer i of a stack.  ``.to`` records the dtype the shard is cast
+    to; ``axes`` are the FSDP axes it is all-gathered over (after the
+    cast) when a product takes it (``gathered``), none in a decode step."""
 
-    def __init__(self, t, transposed: bool = False, dtype=None):
-        self.t, self.transposed, self._dtype = t, transposed, dtype
+    def __init__(self, t, transposed: bool = False, dtype=None, axes: Tuple[str, ...] = ()):
+        self.t, self.transposed, self._dtype, self.axes = t, transposed, dtype, axes
 
     @property
     def shape(self):
@@ -952,15 +1364,20 @@ class _SplitWeight:
 
     @property
     def T(self):
-        return _SplitWeight(self.t, not self.transposed, self._dtype)
+        return _SplitWeight(self.t, not self.transposed, self._dtype, self.axes)
 
     def to(self, dtype):
-        return _SplitWeight(self.t, self.transposed, dtype)
+        return _SplitWeight(self.t, self.transposed, dtype, self.axes)
+
+    def gathered(self):
+        """The weight in its dtype, all-gathered over ``axes``."""
+        t = self.t if self._dtype is None else self.t.to(self._dtype)
+        return _gather(t, self.axes) if self.axes else t
 
     def __getitem__(self, index):
         if isinstance(index, int):
-            return _SplitWeight(self.t[index], self.transposed, self._dtype)
-        return _split_lookup(self.t, index, self._dtype)
+            return _SplitWeight(self.t[index], self.transposed, self._dtype, self.axes)
+        return _split_lookup(self.gathered(), index)
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
@@ -975,8 +1392,7 @@ class _SplitWeight:
             raise TypeError(f"a split weight takes part in products and lookups only, not {name}")
         if w.transposed and name == "einsum":
             raise TypeError("a transposed split weight takes part in x @ w only")
-        t = w.t if w._dtype is None else w.t.to(w._dtype)
-        return _split_product(equation, x, t)
+        return _split_product(equation, x, w.gathered())
 
 
 def _expert_parallel_decode(params, x, cfg, act):
@@ -1032,7 +1448,7 @@ def _expert_parallel_decode(params, x, cfg, act):
     if split:
         out_pl[mi] = Partial()
     y = _from_local(out.reshape(b, s, -1), mesh, out_pl, x.shape)
-    y = y.redistribute(mesh, _batch_placements(x, Replicate()))
+    y = _moved(y, _batch_placements(x, Replicate()))
     if "shared" in params:
         sh = params["shared"]
         hidden = act(_split_product("bsd,df->bsf", x, sh["w_gate"].t).to(x.dtype)) * \
@@ -1055,12 +1471,28 @@ class _LocalCacheWrites(torch.overrides.TorchFunctionMode):
         if func is torch.Tensor.index_copy_ and isinstance(args[0], DTensor) and not kwargs:
             cache, dim, index, new = args
             if Shard(dim % cache.ndim) not in cache.placements:
-                idx = (_to_local(index, [Replicate()] * index.device_mesh.ndim)
-                       if isinstance(index, DTensor) else index)
-                nl = _local_rows(new, cache, list(cache.placements))
-                cache.to_local().index_copy_(dim, idx, nl.to(cache.dtype))
+                with _in_region():
+                    idx = (_to_local(index, [Replicate()] * index.device_mesh.ndim)
+                           if isinstance(index, DTensor) else index)
+                    nl = _local_rows(new, cache, list(cache.placements))
+                    cache.to_local().index_copy_(dim, idx, nl.to(cache.dtype))
                 return cache
         return func(*args, **kwargs)
+
+
+def _marked_remat(fn, counter: _Counter):
+    """``nn.remat`` marking in ``counter`` where each unit of a layer stack
+    starts: as it is called, and in the backward pass where its output's
+    gradient arrives (the depth extrapolation's unit boundaries)."""
+    def remat(enabled, unit, *args):
+        name = getattr(unit, "__qualname__", type(unit).__name__)
+        counter.mark(name, False)
+        out = fn(enabled, unit, *args)
+        first = _tensors(out)[0]
+        if first.requires_grad:
+            first.register_hook(lambda grad: counter.mark(name, True))
+        return out
+    return remat
 
 
 @contextlib.contextmanager
@@ -1068,12 +1500,15 @@ def _substituted(counter: _Counter, count_loops: bool, sharded: bool, grad: bool
     """The step's functions that the dry run replaces for the duration of
     one run: chunked attention with its loops counted, not run (without
     autograd), and, on a sharded mesh, the per-device regions above and
-    the ``Transformer``'s vocabulary-parallel head.  Without autograd a
-    Mamba block's full-sequence pass runs on each device's heads; under
-    autograd the SSD scan alone does, the rest of the block on DTensor's
-    plan, and a decode cache is written on its shards
-    (``_LocalCacheWrites``)."""
-    from repro_torch.models import hybrid, layers, mamba2, transformer
+    the ``Transformer``'s vocabulary-parallel head; a Mamba block's
+    full-sequence pass runs on each device's heads.  Under autograd the
+    norms run on each device's rows (``_local_rmsnorm``) and the sums and
+    means of DTensors that no gradient flows through (the gradient clip's,
+    the optimizer's) as ``_reduced``; without it a decode cache is written
+    on its shards (``_LocalCacheWrites``).  The regions that choose a route
+    write it into ``counter.routes``; under autograd each unit of a layer
+    stack marks where it starts (``_marked_remat``)."""
+    from repro_torch.models import hybrid, layers, mamba2, nn, transformer
     from repro_torch.train import steps
 
     chunked = _counted_chunked_attention(counter) if count_loops else layers.chunked_attention
@@ -1081,19 +1516,25 @@ def _substituted(counter: _Counter, count_loops: bool, sharded: bool, grad: bool
     if sharded:
         targets += [(layers, "attention_scores", _regrouped_scores(layers.attention_scores)),
                     (steps, "lm_loss", _loss_parallel(steps.lm_loss)),
-                    (transformer, "apply_moe", _expert_parallel(transformer.apply_moe))]
+                    (transformer, "apply_moe",
+                     _expert_parallel(transformer.apply_moe, counter.routes, sliced=not grad))]
         targets.append((transformer.Transformer, "_lm_head",
                         _vocab_parallel_head(transformer.Transformer._lm_head)))
+        mamba = _per_head_mamba(mamba2.apply_mamba_block, mamba2.ssd_chunked)
+        targets += [(module, "apply_mamba_block", mamba) for module in (mamba2, hybrid)]
         if grad:
-            targets.append((mamba2, "ssd_chunked", _per_head_ssd(mamba2.ssd_chunked)))
-        else:
-            mamba = _per_head_mamba(mamba2.apply_mamba_block, mamba2.ssd_chunked)
-            targets += [(module, "apply_mamba_block", mamba) for module in (mamba2, hybrid)]
+            targets.append((nn, "apply_rmsnorm", _local_rmsnorm(nn.apply_rmsnorm)))
+    targets = [(owner, name, _region(new) if sharded else new) for owner, name, new in targets]
+    if grad:
+        targets.append((nn, "remat", _marked_remat(nn.remat, counter)))
     originals = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
     for owner, name, new in targets:
         setattr(owner, name, new)
+    modes = contextlib.ExitStack()
+    if sharded:
+        modes.enter_context(_LocalReductions() if grad else _LocalCacheWrites())
     try:
-        with _LocalCacheWrites() if sharded and not grad else contextlib.nullcontext():
+        with modes:
             yield
     finally:
         for owner, name, original in originals:
@@ -1122,6 +1563,13 @@ class Compiled:
     collectives: Dict[Tuple[str, torch.dtype, Tuple[int, ...]], int]
     collective_counts: Dict[str, int]
     largest_buffer_bytes: int = 0     # the largest storage the step allocated
+    # the collectives issued while no region was active (DTensor's own plan)
+    outside_regions: Dict[Tuple[str, torch.dtype, Tuple[int, ...]], int] = \
+        dataclasses.field(default_factory=dict)
+    # the live bytes after each allocation, and where each unit of a layer
+    # stack started (``_Counter.marks``)
+    timeline: array.array = dataclasses.field(default_factory=lambda: array.array("q"))
+    marks: List[Tuple[str, bool, int]] = dataclasses.field(default_factory=list)
 
     def cost_analysis(self) -> Dict[str, float]:
         return {"flops": float(self.flops), "bytes accessed": float(self.bytes_accessed)}
@@ -1141,11 +1589,13 @@ class Compiled:
 
 
 class Lowered:
-    """A step and its abstract inputs on a mesh; ``compile()`` runs it."""
+    """A step and its abstract inputs on a mesh; ``compile()`` runs it and
+    adds to ``meta`` the routes its regions took."""
 
-    def __init__(self, fn, args: tuple, mesh: Mesh, fake_mode, grad: bool):
+    def __init__(self, fn, args: tuple, mesh: Mesh, fake_mode, grad: bool,
+                 meta: Optional[Dict[str, Any]] = None):
         self.fn, self.args, self.mesh, self.fake_mode = fn, args, mesh, fake_mode
-        self.grad = grad
+        self.grad, self.meta = grad, meta if meta is not None else {}
         # without autograd, chunked attention's loops are counted, not run
         self.count_loops = not grad
 
@@ -1179,6 +1629,7 @@ class Lowered:
         with propagation, regions, self.fake_mode, CommDebugMode() as comm, counter, \
                 use_mesh_compat(self.mesh):
             out = self.fn(*args)
+        self.meta.update(counter.routes)
         out_locals = [getattr(t, "_local_tensor", t) for t in _tensors(out)]
         out_bytes = sum(_nbytes(t) for t in out_locals)
         memory = MemoryAnalysis(
@@ -1188,7 +1639,7 @@ class Lowered:
         )
         counts = {str(k): int(v) for k, v in comm.get_comm_counts().items()}
         return Compiled(counter.flops, counter.bytes, memory, counter.collectives, counts,
-                        counter.largest)
+                        counter.largest, counter.outside, counter.timeline, counter.marks)
 
 
 # --- what this torch's DTensor can run -----------------------------------------------
@@ -1237,7 +1688,6 @@ class _DTensorSupport:
     """What this torch's DTensor runs of the models (see ``_adapt_dtensor``)."""
 
     flattens_sharded_dims: bool
-    embedding_backward: bool
 
 
 @functools.lru_cache(maxsize=None)
@@ -1252,14 +1702,11 @@ def _adapt_dtensor(mesh: Mesh) -> _DTensorSupport:
       ``flip``'s ``dims`` go into DTensor's strategy cache key, or a flip
       of other dims of a tensor placed alike would reuse the strategy.
     * Whether it flattens a batch dim and a head dim that are both
-      sharded, as tensor-parallel attention's products do (2.13 does; 2.11
-      refuses).
-    * Whether it runs an embedding's backward, an accumulating
-      ``index_put`` of gradients sharded over the batch and partial over
-      the model axis (2.11's strategy returns an unnormalised ``Shard(-1)``).
+      sharded (2.13 does; 2.11 refuses): no region asks it to, and the
+      record says which torch ran.
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
     from torch.distributed.tensor.experimental import register_sharding
 
@@ -1287,9 +1734,9 @@ def _adapt_dtensor(mesh: Mesh) -> _DTensorSupport:
             raise
         register_sharding(torch.ops.aten.index_copy_.default)(_index_copy_sharding)
     if len(mesh_shape) < 2:
-        return _DTensorSupport(True, True)
+        return _DTensorSupport(True)
     n1 = mesh_shape[1]
-    flattens = embedding = True
+    flattens = True
     y = _sharded_dtensor(mesh, fake, (n0, n1, 4), [Shard(0), Shard(1), *rest[1:]])
     try:
         with fake:
@@ -1298,17 +1745,7 @@ def _adapt_dtensor(mesh: Mesh) -> _DTensorSupport:
         if "flatten" not in str(e):
             raise
         flattens = False
-    table = _sharded_dtensor(mesh, fake, (8, 4), [Replicate(), *rest])
-    tokens = _sharded_dtensor(mesh, fake, (n0, 3), [Shard(0), *rest], torch.int64)
-    grads = _sharded_dtensor(mesh, fake, (n0, 3, 4), [Shard(0), Partial(), *rest[1:]])
-    try:
-        with fake:
-            torch.ops.aten.index_put.default(table, [tokens], grads, True)
-    except RuntimeError as e:
-        if "normalized" not in str(e):
-            raise
-        embedding = False
-    return _DTensorSupport(flattens, embedding)
+    return _DTensorSupport(flattens)
 
 
 # --- FSDP -------------------------------------------------------------------------------
@@ -1316,86 +1753,63 @@ def _adapt_dtensor(mesh: Mesh) -> _DTensorSupport:
 _STACKS = ("layers", "enc_layers", "dec_layers", "mamba_full", "mamba_rem")
 
 
+@_region
 def _gather(t, axes: Tuple[str, ...]):
     """All-gather a DTensor over the FSDP ``axes`` (their mesh dims become
-    Replicate; the tensor-parallel ones stay).  Autograd turns it into a
-    reduce-scatter of the gradient."""
+    Replicate; the tensor-parallel ones stay).  Its gradient is brought
+    back to ``t``'s placements: reduce-scattered over the FSDP axes, and
+    summed where it is partial over a mesh dim that replicates ``t`` (a
+    replicated parameter read by every data shard)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     if not isinstance(t, DTensor):
         return t
     names = t.device_mesh.mesh_dim_names
     target = [Replicate() if n in axes else p for n, p in zip(names, t.placements)]
-    return t if list(t.placements) == target else t.redistribute(t.device_mesh, target)
+    if list(t.placements) == target and not torch.is_grad_enabled():
+        return t
+    return _moved(t, target, defer=False)
 
 
 class _StackGather:
-    """A stacked leaf whose layers are all-gathered one index at a time,
-    when the model takes them (``leaf[i]``), as FSDP gathers a layer;
-    with ``wrap``, each gathered layer is a ``_SplitWeight``."""
+    """A stacked leaf that no product takes (a norm's scale, a scan's
+    A_log): layer ``i`` all-gathered over the FSDP axes when the model
+    takes it (``leaf[i]``), as FSDP gathers a layer."""
 
-    def __init__(self, t, axes: Tuple[str, ...], wrap_as=None):
-        self.t, self.axes, self.wrap_as = t, axes, wrap_as
+    def __init__(self, t, axes: Tuple[str, ...]):
+        self.t, self.axes = t, axes
 
     @property
     def shape(self):
         return self.t.shape
 
     def __getitem__(self, i):
-        if self.wrap_as is None:
-            return _gather(self.t[i], self.axes)
-        return _SplitWeight(_gather(self.t[i].to(self.wrap_as), self.axes), dtype=self.wrap_as)
-
-
-class _LocalLookup:
-    """The embedding table, for a torch whose DTensor cannot shard the
-    lookup's backward: gathered whole, then each device looks its own
-    tokens up in its copy, and the rows form a DTensor placed as the
-    tokens are.  The table's gradient is the devices' partial sums over
-    the batch axes; the tied lm head reads the table as FSDP leaves it."""
-
-    def __init__(self, t, axes: Tuple[str, ...]):
-        self.t, self.axes = t, axes
-
-    def to(self, *args, **kwargs):
-        return _gather(self.t, self.axes).to(*args, **kwargs)
-
-    def __getitem__(self, tokens):
-        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-
-        if not isinstance(tokens, DTensor):
-            return _gather(self.t, self.axes)[tokens]
-        whole = self.t.redistribute(self.t.device_mesh, [Replicate()] * len(self.t.placements))
-        grad = [Partial() if isinstance(p, Shard) else Replicate() for p in tokens.placements]
-        rows = whole.to_local(grad_placements=grad)[tokens.to_local()]
-        shape = tuple(tokens.shape) + tuple(self.t.shape[1:])
-        return DTensor.from_local(rows, tokens.device_mesh, tokens.placements, run_check=False,
-                                  shape=torch.Size(shape),
-                                  stride=torch.empty(shape, device="meta").stride())
+        return _gather(self.t[i], self.axes)
 
 
 class _FsdpModel:
     """``model`` with FSDP's parameter handling: each parameter stays
     sharded over the FSDP axes until a layer uses it, then is
-    all-gathered over them (the tensor-parallel axis stays sharded).
-    Without it DTensor keeps the contraction dims sharded and gathers
-    the activations instead, replicating the batch on every device.
+    all-gathered over them (the tensor-parallel axis stays sharded), and
+    its gradient reduce-scattered back onto its shards.  Without it
+    DTensor keeps the contraction dims sharded and gathers the
+    activations instead, replicating the batch on every device.
 
-    With ``local_lookup``, the embedding table is a ``_LocalLookup``.
-    A step without autograd (``kind`` "prefill" or "decode") runs each
-    product on the device's shards (``_SplitWeight``, tensor parallel
-    over the model axis), a prefill's parameters gathered in the model's
-    dtype, in which the model uses every such parameter (the cast of a
-    shard is the shard of the cast); a decode step gathers nothing: each
-    parameter sharded over the FSDP axes is a ``_SplitWeight`` where it
-    lies."""
+    Each parameter sharded over the FSDP axes is a ``_SplitWeight``: every
+    product runs on the device's shards (tensor parallel over the model
+    axis) and the embedding is a masked lookup in the rows a device holds.
+    A train or prefill step gathers each such parameter in the model's
+    dtype (the cast of a shard is the shard of the cast, and the model
+    casts every such parameter before it uses it): a layer's when a
+    product takes it, so that under ``remat`` the gathered layer is
+    dropped after the forward pass and gathered again in the backward
+    pass, as FSDP reshards; the rest (the embedding, a tied or separate
+    head) once for all their uses.  A decode step gathers nothing."""
 
-    def __init__(self, model, axes: Tuple[str, ...], local_lookup: bool, kind: str = "train"):
+    def __init__(self, model, axes: Tuple[str, ...], kind: str = "train"):
         self._model = model
         self._axes = tuple(axes)
-        self._local_lookup = local_lookup
-        self._split = kind == "decode"
-        self._local_products = kind != "train"
+        self._gathers = () if kind == "decode" else self._axes
 
     def __getattr__(self, name):
         return getattr(self._model, name)
@@ -1411,18 +1825,15 @@ class _FsdpModel:
         pairs, treedef = tree_flatten_with_path(params)
         leaves = []
         for path, t in pairs:
-            name = str(getattr(path[-1], "key", ""))
             top = str(getattr(path[0], "key", ""))
-            dtype = self._model.dtype
-            wrap = self._local_products and self._fsdp_sharded(t)
-            if self._split:
-                leaves.append(_SplitWeight(t, dtype=dtype) if wrap else t)
+            if self._fsdp_sharded(t) and top not in _STACKS and self._gathers:
+                # outside the layers: gathered once for every use
+                dtype = self._model.dtype
+                leaves.append(_SplitWeight(_gather(t.to(dtype), self._gathers), dtype=dtype))
+            elif self._fsdp_sharded(t):
+                leaves.append(_SplitWeight(t, dtype=self._model.dtype, axes=self._gathers))
             elif top in _STACKS:
-                leaves.append(_StackGather(t, self._axes, dtype if wrap else None))
-            elif wrap:
-                leaves.append(_SplitWeight(_gather(t.to(dtype), self._axes), dtype=dtype))
-            elif name == "table" and self._local_lookup:
-                leaves.append(_LocalLookup(t, self._axes))
+                leaves.append(_StackGather(t, self._axes))
             else:
                 leaves.append(_gather(t, self._axes))
         return tree_unflatten(treedef, leaves)
@@ -1446,11 +1857,25 @@ _SPLIT_HEAD = ("vocabulary-parallel: the logits left split over the model axis (
 _SPLIT_EXPERTS = ("expert-parallel with d_model slices: every token routed (the batch's "
                   "capacity), each device its experts' d_model slice, partial products summed "
                   "over the data axes")
+_EXPERT_ROUTES = {
+    "gathered": ("expert-parallel, gathered: buffers (E / model, capacity of the data shard, "
+                 "d), the experts' weights all-gathered over the data axes"),
+    "sliced": ("expert-parallel, sliced: buffers (E / model, capacity of the data shard, d); "
+               "w_gate and w_up on their d_model slices (every shard's buffers moved to each "
+               "slice, an all-to-all, the partial products reduce-scattered back), w_down "
+               "all-gathered over the data axes"),
+}
 _PER_HEAD_SSD = ("per-head Mamba block: in_proj's columns of each device's heads, the scan on "
                  "its heads (the (P, N) state stays on it), out_proj summed over the model axis")
 _TP_PRODUCTS = ("tensor-parallel: each product on the gathered layer's model-axis shard "
                 "(column then row parallel: the FFN's hidden units and the heads stay on their "
-                "device, the row-parallel outputs summed over the model axis)")
+                "device, the row-parallel outputs summed over the model axis; under autograd "
+                "a column-parallel input's gradient summed over the model axis, a weight's "
+                "reduce-scattered over the data axes)")
+_LOCAL_NORMS = ("per device: each device's rows, the scale's gradient summed over the data "
+                "axes, the output's gradient over the model axis")
+_LOCAL_REDUCTIONS = ("per device: the gradient clip's and the optimizer's sums and means on "
+                     "each device's shards, summed over the mesh axes that split them")
 
 
 def lower_pair(
@@ -1467,8 +1892,10 @@ def lower_pair(
     inputs.  Returns (lowered, meta) where meta records what was lowered.
     On a sharded mesh attention runs on each device's query heads,
     the loss on its vocabulary shard and the MoE experts where they are
-    held (``_substituted``); ``meta`` names each route.  ``donate`` is
-    accepted, never modelled (the port's steps run out of place)."""
+    held (``_substituted``); ``meta`` names each route (``compile()``
+    adds those that a region chooses as it runs: the MoE experts').
+    ``donate`` is accepted, never modelled (the port's steps run out of
+    place)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     cfg = cfg or get_config(arch)
@@ -1497,16 +1924,13 @@ def lower_pair(
     # train and prefill gather FSDP-sharded parameters layer by layer; a
     # decode step leaves them where they lie and moves activations
     model_size = mesh.shape.get("model", 1)
-    support = _adapt_dtensor(mesh) if mesh.size > 1 else _DTensorSupport(True, True)
+    support = _adapt_dtensor(mesh) if mesh.size > 1 else _DTensorSupport(True)
     step_model = model
     split = mesh.size > 1 and bool(param_axes) and shape.kind == "decode"
     if mesh.size > 1 and param_axes:
-        step_model = _FsdpModel(model, param_axes,
-                                local_lookup=not support.embedding_backward, kind=shape.kind)
+        step_model = _FsdpModel(model, param_axes, kind=shape.kind)
         meta["weights"] = _SPLIT_WEIGHTS if split else _GATHERED_WEIGHTS
-        meta["embedding"] = (_SPLIT_LOOKUP if shape.kind != "train"
-                             else "DTensor lookup" if support.embedding_backward
-                             else "gathered whole, looked up per device")
+        meta["embedding"] = _SPLIT_LOOKUP
     if mesh.size > 1:
         meta["dtensor_flattens_sharded_dims"] = support.flattens_sharded_dims
         if cfg.family != "ssm":
@@ -1518,17 +1942,13 @@ def lower_pair(
         if split:
             meta["head"] = _SPLIT_HEAD
             meta["cache_writes"] = "on each device's shard of the cache"
-        if cfg.moe is not None:
-            meta["experts"] = (_SPLIT_EXPERTS if split
-                               else "expert-parallel: buffers (E / model, capacity of the data "
-                               "shard, d)" if cfg.moe.num_experts % model_size == 0
-                               else "every expert on every device")
         if cfg.ssm is not None and shape.kind != "decode":
-            meta["ssd"] = (_PER_HEAD_SSD if shape.kind == "prefill" else
-                           "per-head scan: each device scans its heads; the (P, N) state "
-                           "stays on it (the rest of the block on DTensor's plan)")
-        if shape.kind == "prefill":
+            meta["ssd"] = _PER_HEAD_SSD
+        if shape.kind != "decode":
             meta["products"] = _TP_PRODUCTS
+        if shape.kind == "train":
+            meta["norms"] = _LOCAL_NORMS
+            meta["optimizer"] = _LOCAL_REDUCTIONS
     fake = FakeTensorMode(allow_non_fake_inputs=True)
     with fake:
         if shape.kind == "train":
@@ -1537,19 +1957,19 @@ def lower_pair(
             batch_sds = speclib.batch_specs(cfg, shape, mesh)
             opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
             lowered = Lowered(make_train_step(step_model, opt), (state_sds, batch_sds), mesh, fake,
-                              grad=True)
+                              grad=True, meta=meta)
         elif shape.kind == "prefill":
             p_sds = speclib.params_specs(model, mesh, param_axes)
             batch_sds = speclib.batch_specs(cfg, shape, mesh)
             lowered = Lowered(make_prefill_step(step_model), (p_sds, batch_sds), mesh, fake,
-                              grad=False)
+                              grad=False, meta=meta)
         else:  # decode
             p_sds = speclib.params_specs(model, mesh, param_axes)
             cache_sds = speclib.cache_specs(model, cfg, shape, mesh, param_axes)
             tok_sds = speclib.token_specs(cfg, shape, mesh)
             pos_sds = speclib.sds((), torch.int32, mesh)
             lowered = Lowered(make_serve_step(step_model), (p_sds, tok_sds, cache_sds, pos_sds),
-                              mesh, fake, grad=False)
+                              mesh, fake, grad=False, meta=meta)
     return lowered, meta
 
 
@@ -1588,42 +2008,58 @@ def _compile_at(arch, shape_name, mesh, cfg) -> Dict[str, Any]:
     mem = compiled.memory_analysis()
     by_shape = {(kind, _HLO_DTYPES[dtype], shape): n
                 for (kind, dtype, shape), n in compiled.collectives.items()}
+    outside = {(kind, _HLO_DTYPES[dtype], shape): n
+               for (kind, dtype, shape), n in compiled.outside_regions.items()}
     return {"meta": meta, "flops": compiled.flops, "bytes": compiled.bytes_accessed,
             "coll": collective_bytes(compiled.as_text()), "by_shape": by_shape,
-            "memory": {k: getattr(mem, k) for k in _MEM_ATTRS}}
+            "outside": _bytes_by_kind(outside), "outside_by_shape": outside,
+            "memory": {k: getattr(mem, k) for k in _MEM_ATTRS},
+            "timeline": compiled.timeline, "marks": compiled.marks}
+
+
+def _bytes_by_kind(by_shape: Dict[Tuple[str, str, Tuple[int, ...]], int]) -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    for (kind, dtype, shape), n in by_shape.items():
+        out[kind] = out.get(kind, 0) + n * math.prod(shape) * _DTYPE_BYTES[dtype]
+    return out
 
 
 def extrapolated_analysis(arch: str, shape_name: str, mesh: Mesh,
                           cfg: Optional[ArchConfig] = None) -> Dict[str, Any]:
-    """Counts of the full-depth step from steps of 2, 3 (and, with
-    autograd, 4) units of each layer stack, by Newton's forward
-    differences: ``c(n) = c(2) + m D1 + m (m - 1) / 2 D2`` with m = n - 2.
+    """Counts of the full-depth step from steps of 2 and 3 units of each
+    layer stack (a train step: 3, 4 and 5), by Newton's forward
+    differences: ``c(n) = c(b) + m D1 + m (m - 1) / 2 D2`` with m = n - b.
     Every unit is identical, so a step without autograd is affine in the
-    units; a train step adds a square term: the backward of each
-    ``stack[i]`` writes a gradient the size of the whole stack.  Exact
-    where that holds (tested against full traces); a stack of at most 4
-    units is traced whole.  One full-width layer of a 32k prefill is tens
-    of thousands of operations, so tracing 61 of them is what this
-    avoids.  (Not from one unit: under DTensor a stack of one lays its
-    cache out otherwise, off the line.)
+    units; a train step's FLOPs and bytes add a square term: the backward
+    of each ``stack[i]`` writes a gradient the size of the whole stack.
+    Exact where that holds (tested against full traces); a shorter stack
+    is traced whole.  One full-width layer of a 32k prefill is tens of
+    thousands of operations, so tracing 61 of them is what this avoids.
+    (Not from one unit: under DTensor a stack of one lays its cache out
+    otherwise, off the line.)
 
-    Collectives move each unit's weights and activations once, so they
-    are affine in the units: a train step takes their slope from its two
-    deepest traces, where DTensor's plan has settled (its plan for 2
-    units may differ, and the square term would scale that by
-    m (m - 1) / 2).  ``coll_body_once`` is the collective count with
-    each stack's unit counted once, c(n) - (n - 1) slope, as the
-    reference's HLO text lists a scanned stack's loop body once (None
-    where a stack was traced whole)."""
+    Collectives and a serving step's memory are affine in the units: a
+    step moves each unit's weights and activations once.  A train step
+    takes the collectives' slope from its two deepest traces (a square
+    term through three would scale any plan change between them by
+    m (m - 1) / 2), and its peak memory from every point of them
+    (``_unit_peak``).  With several stacks, each one's change adds.
+    ``coll_body_once`` is the collective count with each stack's unit
+    counted once, c(n) - (n - 1) slope, as the reference's HLO text lists
+    a scanned stack's loop body once (None where a stack was traced
+    whole)."""
     cfg = cfg or get_config(arch)
     knobs = depth_knobs(cfg)
     order = 2 if INPUT_SHAPES[shape_name].kind == "train" else 1
-    base_units = {k: 2 if n > 2 + order else n for k, (n, _) in knobs.items()}
+    first = _FIRST_TRACED[order]
+    base_units = {k: first if n > first + order else n for k, (n, _) in knobs.items()}
     base = _compile_at(arch, shape_name, mesh, _at_depth(cfg, base_units))
     out = {"meta": base["meta"], "flops": base["flops"], "bytes": base["bytes"],
            "coll": dict(base["coll"]), "by_shape": dict(base["by_shape"]),
+           "outside": dict(base["outside"]), "outside_by_shape": dict(base["outside_by_shape"]),
            "memory": dict(base["memory"])}
-    slopes: Optional[List[Tuple[int, Dict[str, float]]]] = []
+    traced = [base]
+    slopes: Optional[List[Tuple[int, str, Dict[str, float]]]] = []
 
     for knob, (n, _) in knobs.items():
         if n == base_units[knob]:
@@ -1633,43 +2069,111 @@ def extrapolated_analysis(arch: str, shape_name: str, mesh: Mesh,
             _compile_at(arch, shape_name, mesh,
                         _at_depth(cfg, {**base_units, knob: base_units[knob] + i}))
             for i in range(1, order + 1)]
+        traced += points[1:]
         m = n - base_units[knob]
         weights = [-m, m] if order == 1 else [-m + m * (m - 1) // 2, m - m * (m - 1),
                                               m * (m - 1) // 2]
         # c(n) - c(2) as a weighted sum over the traced points
-        nums = [[c["flops"], c["bytes"]] + [c["memory"][a] for a in _MEM_ATTRS]
-                for c in points]
-        delta = [sum(w * v[i] for w, v in zip(weights, nums)) for i in range(len(nums[0]))]
-        out["flops"] += delta[0]
-        out["bytes"] += delta[1]
-        for attr, d in zip(_MEM_ATTRS, delta[2:]):
-            out["memory"][attr] += d
-        # collectives: affine through the two deepest traces
+        out["flops"] += sum(w * c["flops"] for w, c in zip(weights, points))
+        out["bytes"] += sum(w * c["bytes"] for w, c in zip(weights, points))
+        # memory and collectives: affine through the two deepest traces
         affine = [-m, m] if order == 1 else [-1, 2 - m, m - 1]
-        for field in ("coll", "by_shape"):
+        for attr in _MEM_ATTRS:
+            out["memory"][attr] += sum(w * c["memory"][attr] for w, c in zip(affine, points))
+        if order == 2:
+            # a train step's peak: each position in a unit extrapolated on its own
+            output = base["memory"]["output_size_in_bytes"] + sum(
+                w * c["memory"]["output_size_in_bytes"] for w, c in zip(affine, points))
+            temp = _unit_peak(points[-2], points[-1], first + 1, n) - output
+            out["memory"]["temp_size_in_bytes"] += temp - (
+                base["memory"]["temp_size_in_bytes"]
+                + sum(w * c["memory"]["temp_size_in_bytes"] for w, c in zip(affine, points)))
+        for field in ("coll", "by_shape", "outside", "outside_by_shape"):
             for key in set().union(*(c[field] for c in points)):
                 d = sum(w * c[field].get(key, 0) for w, c in zip(affine, points))
                 out[field][key] = out[field].get(key, 0) + d
         if slopes is not None:
-            slopes.append((n, {kind: points[-1]["coll"].get(kind, 0)
-                               - points[-2]["coll"].get(kind, 0)
-                               for kind in set(points[-1]["coll"]) | set(points[-2]["coll"])}))
+            for field in ("coll", "outside"):
+                slopes.append((n, field, {
+                    kind: points[-1][field].get(kind, 0) - points[-2][field].get(kind, 0)
+                    for kind in set(points[-1][field]) | set(points[-2][field])}))
     out["memory"]["temp_size_in_bytes"] = max(out["memory"]["temp_size_in_bytes"], 0)
     out["depth"] = {k: n for k, (n, _) in knobs.items()}
     out["traced_depth"] = base_units
-    out["coll_body_once"] = None
+    out["coll_body_once"] = out["outside_body_once"] = None
     if slopes is not None:
-        body = dict(out["coll"])
-        for n, slope in slopes:
+        body = {"coll": dict(out["coll"]), "outside": dict(out["outside"])}
+        for n, field, slope in slopes:
             for kind, d in slope.items():
-                body[kind] = body.get(kind, 0) - (n - 1) * d
-        out["coll_body_once"] = body
+                body[field][kind] = body[field].get(kind, 0) - (n - 1) * d
+        out["coll_body_once"], out["outside_body_once"] = body["coll"], body["outside"]
+    # the largest single collective outside the regions in any trace
+    out["outside_largest"] = max(
+        [math.prod(shape) * _DTYPE_BYTES[dtype] for c in traced
+         for (kind, dtype, shape), k in c["outside_by_shape"].items() if k > 0], default=0)
     return out
 
 
+# the fewest units of a stack traced: a step without autograd at 2 and 3,
+# a train step at 3, 4 and 5 (``_unit_peak`` reads 2 units at each end of
+# the two deepest)
+_FIRST_TRACED = {1: 2, 2: 3}
+_END_UNITS = 2
+
+
+def _unit_peak(a: Dict[str, Any], b: Dict[str, Any], d: int, n: int) -> int:
+    """The peak of a train step's live bytes at ``n`` units of one layer
+    stack, from its traces ``a`` at ``d`` units and ``b`` at d + 1
+    (d >= 2 ``_END_UNITS``).
+
+    Past its first and last few units, the bytes live at a given point of
+    unit u's forward or backward pass are affine in u and in n (each unit
+    saves its input, each adds its share of the gradients), so their
+    largest is in the first or the last ``_END_UNITS`` units of each pass;
+    the peak is the largest over every point of those units and of the
+    code before the first unit (that after the last is the last unit's),
+    each point extrapolated to n on its own.  The peak's own trace is not
+    affine: at a few units it falls in one pass, at many in the other.
+    Nor are a pass's first units like the rest: there the backward pass
+    holds more whole-stack gradient buffers while autograd sums a stack's
+    gradients (smoke zamba2: three of ``in_proj``'s at its peak), so two
+    units are read at each end (held to traces of every unit for each
+    family's smoke config, ``tests/test_torch_launch.py``).  The units
+    are found by their marks (``_marked_remat``): the stack's is the
+    function whose marks grow by r a unit."""
+    import numpy as np
+
+    def count(trace, name, backward):
+        return sum(1 for unit, back, _ in trace["marks"] if unit == name and back == backward)
+
+    grown = {name: count(b, name, False) - count(a, name, False)
+             for name, _, _ in b["marks"]}
+    names = [name for name, r in grown.items() if r > 0]
+    if len(names) != 1:
+        raise ValueError(f"no one layer stack grows with the units: {grown}")
+    name, r = names[0], grown[names[0]]
+
+    def windows(trace):
+        fwd = [i for unit, back, i in trace["marks"] if unit == name and not back]
+        bwd = [i for unit, back, i in trace["marks"] if unit == name and back]
+        w = _END_UNITS * r
+        if len(bwd) != len(fwd) or len(fwd) < 2 * w:
+            raise ValueError(f"{name}: {len(fwd)} units marked forward, {len(bwd)} backward")
+        t = np.frombuffer(trace["timeline"], dtype=np.int64)
+        return [t[:fwd[0]], t[fwd[0]:fwd[w]], t[fwd[-w]:bwd[0]], t[bwd[0]:bwd[w]], t[bwd[-w]:]]
+
+    peak = 0
+    for wa, wb in zip(windows(a), windows(b)):
+        if len(wa) != len(wb):
+            raise ValueError(f"{name}: a unit allocates {len(wa)} times at {d} units, "
+                             f"{len(wb)} at {d + 1}")
+        if len(wb):
+            peak = max(peak, int((wb + (n - d - 1) * (wb - wa)).max()))
+    return peak
+
+
 def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
-             verbose: bool = True, cfg: Optional[ArchConfig] = None
-             ) -> Dict[str, Any]:
+             verbose: bool = True, cfg: Optional[ArchConfig] = None) -> Dict[str, Any]:
     t0 = time.time()
     mesh = make_production_mesh(multi_pod=multi_pod)
     counts = extrapolated_analysis(arch, shape_name, mesh, cfg=cfg)
@@ -1688,7 +2192,11 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
             "bytes_accessed": float(counts["bytes"]),
             "collective_bytes": coll,
             "collective_bytes_body_once": counts["coll_body_once"],
+            "collectives_outside_regions": counts["outside"],
+            "collectives_outside_regions_body_once": counts["outside_body_once"],
+            "largest_collective_outside_regions": counts["outside_largest"],
             "top_collectives": _top_collectives(counts["by_shape"]),
+            "top_collectives_outside_regions": _top_collectives(counts["outside_by_shape"]),
             "memory": _mem_dict(MemoryAnalysis(**counts["memory"])),
         }
     )
@@ -1708,6 +2216,8 @@ def _top_collectives(by_shape: Dict[Tuple[str, str, Tuple[int, ...]], int],
     move the most bytes in the step, with their count."""
     rows = []
     for (kind, dtype, shape), count in by_shape.items():
+        if count <= 0:
+            continue
         size = math.prod(shape) * _DTYPE_BYTES[dtype]
         rows.append({"kind": kind, "dtype": dtype, "shape": list(shape),
                      "count": int(count), "bytes": float(count * size)})

@@ -17,8 +17,15 @@ parameters' bytes, so the memory compared is theirs.
     the global batch (a loss sharded over the batch alone holds half of
     them, its gradient's global-batch zeros all of them), and under the
     bytes of the global expert buffers.
+  * A train step runs the port's own plan: its products tensor-parallel,
+    and every collective that no region asked for (DTensor's own plan)
+    a scalar of at most 1 KB.
+  * The MoE experts take the route the record names: "sliced" all-gathers
+    one expert weight a MoE layer (``w_down``) and moves the buffers (an
+    all-to-all), "gathered" all-gathers all three.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,11 +60,16 @@ for arch, shape, batch, seq in {pairs!r}:
     finally:
         INPUT_SHAPES[shape] = base
     mem = compiled.memory_analysis()
+    outside = getattr(compiled, "outside_regions", {{}})
     out[f"{{arch}}|{{shape}}"] = {{
         "per_device": (mem.argument_size_in_bytes + mem.output_size_in_bytes
                        + mem.temp_size_in_bytes - mem.alias_size_in_bytes),
         "largest": getattr(compiled, "largest_buffer_bytes", None),
         "meta": {{k: v for k, v in meta.items() if isinstance(v, (str, int, bool))}},
+        "collectives": [[kind, list(shape), n] for (kind, _, shape), n
+                        in getattr(compiled, "collectives", {{}}).items()],
+        "outside": [[kind, list(shape), dtype.itemsize, n]
+                    for (kind, dtype, shape), n in outside.items()],
     }}
 print("RESULT:" + json.dumps(out))
 """
@@ -115,3 +127,34 @@ def test_loss_and_expert_buffers_sharded(port, pair):
         n = batch * seq
         global_buffers = cfg.moe.num_experts * capacity(cfg.moe, n) * cfg.d_model * 2
         assert rec["largest"] < global_buffers
+
+
+TRAIN = [p for p in PAIRS if p[1] == "train_4k"]
+MOE = [p for p in PAIRS if p[0] == "kimi-k2-1t-a32b"]
+
+
+@pytest.mark.parametrize("pair", TRAIN, ids=[f"{a}-{s}" for a, s, _, _ in TRAIN])
+def test_train_step_runs_the_ports_plan(port, pair):
+    rec = port[f"{pair[0]}|{pair[1]}"]
+    assert rec["meta"]["products"].startswith("tensor-parallel")
+    sizes = [math.prod(shape) * itemsize for _, shape, itemsize, n in rec["outside"] if n > 0]
+    assert max(sizes, default=0) <= 1024, rec["outside"]
+
+
+@pytest.mark.parametrize("pair", MOE, ids=[f"{a}-{s}" for a, s, _, _ in MOE])
+def test_experts_take_the_route_the_record_names(port, pair):
+    from repro_torch.configs import get_smoke_config
+
+    arch, shape, _, _ = pair
+    cfg = get_smoke_config(arch)
+    rec = port[f"{arch}|{shape}"]
+    route = rec["meta"]["experts"]
+    sliced = route.startswith("expert-parallel, sliced")
+    assert sliced or route.startswith("expert-parallel, gathered")
+    # an expert weight gathered over data: E / model experts of d x F
+    expert = cfg.moe.num_experts // 4 * cfg.d_model * cfg.moe.d_ff_expert
+    gathers = sum(n for kind, shp, n in rec["collectives"]
+                  if kind == "all-gather" and len(shp) == 3 and math.prod(shp) == expert)
+    moe_layers = cfg.num_layers // cfg.moe_every
+    assert gathers == (1 if sliced else 3) * moe_layers, (route, rec["collectives"])
+    assert sliced == any(kind == "all-to-all" for kind, _, _ in rec["collectives"])

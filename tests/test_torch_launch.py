@@ -22,8 +22,9 @@ JAX package, on the CPU.
   * FLOPs: exact on a hand-counted MLP train step; each smoke
     architecture's compiled FLOPs against the analytic 6 N D within
     [0.95, 1.30] (seamless [1.5, 1.8]: its 1024 source frames are not in
-    the analytic token count); the depth extrapolation and the counted
-    chunk loops equal full traces.
+    the analytic token count); the depth extrapolation (a train step's
+    FLOPs, bytes, memory and collective bytes, on one device and on the
+    (2, 2, 2) mesh) and the counted chunk loops equal full traces.
 """
 import dataclasses
 import json
@@ -286,6 +287,23 @@ for arch, shape in [("gemma-7b", "train_4k"),
     finally:
         INPUT_SHAPES[shape] = sh
 
+# the depth extrapolation against a trace of every unit, through the regions
+from repro_torch.launch.dryrun import extrapolated_analysis
+sh = INPUT_SHAPES["train_4k"]
+INPUT_SHAPES["train_4k"] = dataclasses.replace(sh, seq_len=128, global_batch=8)
+try:
+    for arch, layers in (("kimi-k2-1t-a32b", 7), ("zamba2-1.2b", 14)):
+        cfg = dataclasses.replace(get_smoke_config(arch), num_layers=layers)
+        full = lower_pair(arch, "train_4k", mesh, cfg=cfg)[0].compile()
+        ext = extrapolated_analysis(arch, "train_4k", mesh, cfg=cfg)
+        mem = ("argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes")
+        out[f"depth of {arch}"] = {
+            "extrapolated": [ext["memory"][k] for k in mem] + [ext["coll"]],
+            "full": [getattr(full.memory, k) for k in mem] + [collective_bytes(full.as_text())],
+            "traced": ext["traced_depth"], "depth": ext["depth"]}
+finally:
+    INPUT_SHAPES["train_4k"] = sh
+
 # FLOPs per device: one sharded matmul, (64, 32) @ (32, 48), rows over pod and
 # data (4), columns over model (2): each device multiplies 16 rows by 24 columns
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -300,13 +318,13 @@ out["matmul_memory"] = [mm.memory.argument_size_in_bytes, mm.memory.output_size_
 
 # what the dry run fits to an older DTensor, held on this one: the strategies
 # it registers for flip and index_copy_ where a torch has none, and the
-# per-device embedding lookup where a torch cannot shard the lookup's backward
+# per-device embedding lookup (a train step's: its backward on each device's rows)
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
 from torch.distributed.tensor.experimental import register_sharding
 from repro_torch.launch import dryrun
 support = dryrun._adapt_dtensor(mesh)
-out["support"] = [support.flattens_sharded_dims, support.embedding_backward]
+out["support"] = [support.flattens_sharded_dims]
 register_sharding(torch.ops.aten.flip.default)(dryrun._flip_sharding)
 DTensor._op_dispatcher.sharding_propagator.op_to_schema_info[
     torch.ops.aten.flip.default] = RuntimeSchemaInfo(1, needs_pytree=True)
@@ -326,7 +344,7 @@ tok = dryrun._sharded_dtensor(mesh, fake, (8, 5), [Shard(0), Shard(0), Replicate
 with fake:
     with torch.enable_grad():
         leaf = table.detach().requires_grad_(True)
-        rows = dryrun._LocalLookup(leaf, ("pod", "data"))[tok]
+        rows = dryrun._SplitWeight(leaf, axes=("pod", "data"))[tok]
         (grad,) = torch.autograd.grad(rows.sum(), leaf)
 out["lookup"] = [list(rows.shape), [str(p) for p in rows.placements],
                  list(rows.to_local().shape), [str(p) for p in grad.placements],
@@ -378,7 +396,7 @@ def test_dtensor_fitting(dryrun_result):
     gets holds here: flip keeps a shard only off the flipped dims,
     index_copy_ keeps self's placement, the per-device lookup's rows are
     placed as the tokens and the table's gradient as the table."""
-    assert dryrun_result["support"] == [True, True]
+    assert dryrun_result["support"] == [True]
     # no mesh dim shards a flipped dim (which other dims stay sharded is
     # DTensor's cost-based choice)
     assert "S(1)" not in dryrun_result["flip1"] and "S(0)" in dryrun_result["flip1"]
@@ -469,20 +487,48 @@ def _with_shape(name, **kw):
     return small.name
 
 
+def _deeper(arch, layers, encoder=None):
+    cfg = dataclasses.replace(get_smoke_config(arch), num_layers=layers)
+    if encoder is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder,
+                                                                   num_layers=encoder))
+    return cfg
+
+
+_MEMORY = ("argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes")
+
+
 def test_depth_extrapolation_equals_full_trace():
+    """Every family, and two stacks at once (seamless): a train step's
+    FLOPs, bytes and memory, the peak's temp bytes among them (at 7
+    zamba2 groups the peak falls in another pass than at 3-5)."""
     mesh = make_mesh_compat((1, 1), ("data", "model"))
     name = _with_shape("train_4k", seq_len=64, global_batch=2)
     try:
-        for arch, layers in (("gemma-7b", 5), ("zamba2-1.2b", 26)):
-            cfg = dataclasses.replace(get_smoke_config(arch), num_layers=layers)
+        for arch, cfg in (("gemma-7b", _deeper("gemma-7b", 7)),
+                          ("zamba2-1.2b", _deeper("zamba2-1.2b", 14)),
+                          ("mamba2-780m", _deeper("mamba2-780m", 9)),
+                          ("kimi-k2-1t-a32b", _deeper("kimi-k2-1t-a32b", 9)),
+                          ("internvl2-26b", _deeper("internvl2-26b", 8)),
+                          ("seamless-m4t-large-v2", _deeper("seamless-m4t-large-v2", 8, 7))):
             full = dryrun.lower_pair(arch, name, mesh, cfg=cfg)[0].compile()
             ext = dryrun.extrapolated_analysis(arch, name, mesh, cfg=cfg)
-            assert ext["traced_depth"] != ext["depth"]
-            assert ext["flops"] == full.flops
-            assert ext["bytes"] == full.bytes_accessed
-            assert ext["memory"]["argument_size_in_bytes"] == full.memory.argument_size_in_bytes
+            assert all(ext["traced_depth"][k] < n for k, n in ext["depth"].items()), arch
+            assert ext["flops"] == full.flops, arch
+            assert ext["bytes"] == full.bytes_accessed, arch
+            for attr in _MEMORY:
+                assert ext["memory"][attr] == getattr(full.memory, attr), (arch, attr)
     finally:
         tbase.INPUT_SHAPES.pop(name)
+
+
+def test_depth_extrapolation_equals_full_trace_sharded(dryrun_result):
+    """On the (2, 2, 2) mesh, through the regions: memory and collective
+    bytes extrapolated equal a trace of every unit."""
+    for key in ("kimi-k2-1t-a32b", "zamba2-1.2b"):
+        rec = dryrun_result[f"depth of {key}"]
+        assert all(rec["traced"][k] < n for k, n in rec["depth"].items()), rec
+        assert rec["extrapolated"] == rec["full"], (key, rec)
 
 
 def test_counted_chunk_loops_equal_running_them():
