@@ -104,6 +104,10 @@ script exits non-zero without a result line:
                    Phases 16-18 reset the flash count just before they
                    run and read it just after; each prefill profile must
                    show the tensor-core flash kernel alone.
+                   Each profiled prefill (phases 12, 14, 16-18) is one
+                   torch.profiler session, which must hold every flash
+                   and SSD kernel launched in it, by the wrappers' counts,
+                   or the run fails.
  19. zoo_agree   — prefill against teacher-forced decode at full width,
                    2 layers, float32 (internvl2's text path, seamless);
                    the smoke configs of the four on the card against the
@@ -151,23 +155,26 @@ script exits non-zero without a result line:
                    no card), one subprocess a pair, all at once: gemma-7b
                    train_4k and long_500k, kimi-k2 prefill_32k,
                    mamba2-780m decode_32k and prefill_32k, zamba2-1.2b
-                   train_4k, internvl2-26b prefill_32k, seamless
-                   decode_32k, llama4-maverick decode_32k and
-                   mistral-large-123b train_4k; per-device
-                   memory, FLOPs, bytes and collective bytes (the largest
-                   by shape; also with each layer stack's unit counted
-                   once, as the reference's HLO lists a scanned loop's
-                   body once), the routes, whether the per-device bytes
-                   fit the card, beside the reference's
+                   train_4k and decode_32k, internvl2-26b prefill_32k,
+                   seamless decode_32k, llama4-maverick decode_32k and
+                   mistral-large-123b train_4k; per-device memory,
+                   FLOPs, bytes and collective bytes (the largest by
+                   shape; also with each layer stack's unit counted once,
+                   as the reference's HLO lists a scanned loop's body
+                   once), the routes, whether the per-device bytes fit
+                   the card, beside the reference's
                    (``DRYRUN_REFERENCE``); train pairs must show
-                   collective traffic, none that no region asked for but
-                   scalars (``DRYRUN_OUTSIDE_REGIONS_BYTES``, DTensor's
-                   own plan), and at most the reference's collective
+                   collective traffic; train pairs and the SSM decode
+                   pairs (their Mamba blocks per head) none that no
+                   region asked for but scalars
+                   (``DRYRUN_OUTSIDE_REGIONS_BYTES``, DTensor's own
+                   plan); train pairs at most the reference's collective
                    bytes with each stack's unit counted once
-                   (``DRYRUN_TRAIN_BODY_ONCE``), every pair that fits in the
-                   reference must fit in the port, and each serving pair
-                   must keep within its bounds against the reference
-                   (``DRYRUN_DECODE_*``, ``DRYRUN_PREFILL_BOUNDS``).
+                   (``DRYRUN_TRAIN_BODY_ONCE``); every pair that fits in
+                   the reference must fit in the port, and each serving
+                   pair must keep within its bounds against the
+                   reference (``DRYRUN_DECODE_*``,
+                   ``DRYRUN_PREFILL_BOUNDS``).
                    The 40-pair sweep is not run: its time is estimated
                    from the pairs'.
 
@@ -329,17 +336,20 @@ DRYRUN_PAIRS = [("gemma-7b", "train_4k"), ("kimi-k2-1t-a32b", "prefill_32k"),
                 ("mamba2-780m", "decode_32k"), ("zamba2-1.2b", "train_4k"),
                 ("internvl2-26b", "prefill_32k"), ("seamless-m4t-large-v2", "decode_32k"),
                 ("gemma-7b", "long_500k"), ("llama4-maverick-400b-a17b", "decode_32k"),
-                ("mamba2-780m", "prefill_32k"), ("mistral-large-123b", "train_4k")]
+                ("mamba2-780m", "prefill_32k"), ("mistral-large-123b", "train_4k"),
+                ("zamba2-1.2b", "decode_32k")]
 DRYRUN_TIMEOUT_S = 480
 # the routes a dry-run record names (``lower_pair``'s meta, and the routes its
 # regions took)
 DRYRUN_ROUTES = ("weights", "embedding", "attention", "head", "cache_writes", "loss",
                  "experts", "ssd", "products", "norms", "optimizer")
-# a train step's collectives that no region asked for (DTensor's own plan):
-# scalars only, each at most this many bytes a device; its collective bytes with
-# each stack's unit counted once (as the reference's HLO lists a loop body) at
-# most this multiple of the reference's
+# a train step's and an SSM decode step's collectives that no region asked for
+# (DTensor's own plan): scalars only, each at most this many bytes a device; an
+# SSM decode step's Mamba blocks run per head (its route); a train step's
+# collective bytes with each stack's unit counted once (as the reference's HLO
+# lists a loop body) at most this multiple of the reference's
 DRYRUN_OUTSIDE_REGIONS_BYTES = 1024
+DRYRUN_SSM_DECODE_ROUTE = "per-head Mamba decode"
 DRYRUN_TRAIN_BODY_ONCE = 1.0
 # the serving pairs' bounds against the reference (tests/test_torch_dryrun_serve.py's):
 # a decode step's collective bytes within 4x the reference's or 16 MB, whichever is
@@ -351,8 +361,6 @@ DRYRUN_DECODE_COLLECTIVE, DRYRUN_DECODE_MEMORY = (4.0, 16e6), (2.0, 0.25e9)
 DRYRUN_PREFILL_BOUNDS = {"kimi-k2-1t-a32b": {"collective": 8.0, "memory": 0.70},
                          "internvl2-26b": {"collective": 10.0, "memory": 0.74},
                          "mamba2-780m": {"collective": 4.0, "memory": 1.02}}
-# profiled prefills: sessions tried for a profile that holds every kernel launched
-PROFILE_SESSIONS = 3
 # the example twins as phase ``examples`` runs them (train_arch at its default
 # ~126M config)
 EXAMPLES = [("quickstart_torch", []), ("sota_comparison_torch", ["--fast"]),
@@ -393,6 +401,9 @@ DRYRUN_REFERENCE = {
     ("mistral-large-123b", "train_4k"): {"argument": 5052465864, "output": 2061495304,
                                          "temp": 429499240280, "alias": 1950352072,
                                          "collective": 100080213632},
+    ("zamba2-1.2b", "decode_32k"): {"argument": 978365184, "output": 959960668,
+                                    "temp": 2051135992, "alias": 959928604,
+                                    "collective": 428760448},
 }
 
 
@@ -535,10 +546,11 @@ def profile_round(torch, strategy, t: float) -> dict:
     """One main-path round under torch.profiler, its wall time split by
     synchronised ranges around the task's and the aggregation's calls."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from repro_torch.core import fedleo
     from repro_torch.kernels.aggregate import KERNEL
+    from repro_torch.profiling import device_profile
 
     def ranged(fn, label):
         def call(*args, **kwargs):
@@ -556,7 +568,8 @@ def profile_round(torch, strategy, t: float) -> dict:
         setattr(obj, name, ranged(getattr(obj, name), label))
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
+            torch.cuda.synchronize()
             w0 = time.perf_counter()
             t_next = strategy.run_round(t)
             torch.cuda.synchronize()
@@ -614,11 +627,14 @@ def range_contents(prof, label: str):
 
 def device_kernels(stats):
     """(name, device ms, count) of the kernels and copies in a profile,
-    largest first."""
+    largest first, but the spin kernels that open a session
+    (``device_profile``'s lead-in)."""
     from torch.autograd import DeviceType
 
+    from repro_torch.profiling import LEAD_IN_KERNEL
+
     return sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in stats
-                   if e.device_type == DeviceType.CUDA
+                   if e.device_type == DeviceType.CUDA and LEAD_IN_KERNEL not in e.key
                    and not getattr(e, "is_user_annotation", False)),
                   key=lambda r: -r[1])
 
@@ -743,15 +759,14 @@ def kernel_only_ms(torch, fn, flush, name: str, reps: int = 30):
     ``fn`` (``flush`` and a spin before each) under torch.profiler: the
     kernel alone, without the launch and event latency that CUDA events
     around one call include."""
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.profiling import device_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         for _ in range(reps):
             flush()
             torch.cuda._sleep(SPIN_CYCLES)
             fn()
-        torch.cuda.synchronize()
     found = [(ms, c) for k, ms, c in device_kernels(prof.key_averages()) if name in k]
     if not found:
         return "not measured"
@@ -1392,25 +1407,22 @@ def time_flash(torch, dev, gen, flush, smi):
 
 
 def profile_call(torch, fn, moe: bool = False, complete: bool = False):
-    """``profile_once``.  With ``complete``, the profile must hold a record
-    of every flash and SSD kernel the call launched (by the wrappers'
-    counts during its session): a session that dropped some (the
-    profiler can miss a ctypes library's kernels, a few or all of them,
-    ``tools/profiler_probe.py``) is run again, up to ``PROFILE_SESSIONS``
-    sessions, and the profile carries ``sessions``, the calls made, which
-    the caller counts.  The checks read the complete profile as any."""
+    """``profile_once``.  With ``complete``, the one session must hold a
+    record of every flash and SSD kernel the call launched (by the
+    wrappers' counts during it), or the run fails."""
     from repro_torch.kernels.flash import flash_attention
     from repro_torch.kernels.ssd import ssd_scan
 
-    for sessions in range(1, PROFILE_SESSIONS + 1):
-        before = flash_attention.launches, ssd_scan.launches
-        prof = profile_once(torch, fn, moe)
+    before = flash_attention.launches, ssd_scan.launches
+    prof = profile_once(torch, fn, moe)
+    if complete:
         flash, ssd = flash_attention.launches - before[0], ssd_scan.launches - before[1]
-        if not complete or prof.get("device_busy_ms") == "not measured" or (
-                prof["flash_tc_launches"] + prof["flash_core_launches"] >= flash
-                and prof["ssd_tc_launches"] + prof["ssd_core_launches"] >= ssd):
-            break
-    return dict(prof, sessions=sessions) if complete else prof
+        held = tuple(sum(prof.get(f"{k}_{route}_launches", 0) for route in ("tc", "core"))
+                     for k in ("flash", "ssd"))
+        check(held == (flash, ssd),
+              f"the profile holds {held[0]} flash and {held[1]} SSD kernels of the "
+              f"{flash} and {ssd} launched in its session")
+    return prof
 
 
 def profile_once(torch, fn, moe: bool = False):
@@ -1424,13 +1436,13 @@ def profile_once(torch, fn, moe: bool = False):
     back); the experts are the rest of the layer: their products
     (``moe_expert_gemm_ms``, the shared expert's too) and their
     activations (``moe_expert_other_ms``)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from repro_torch.models import moe as moe_mod
-    from repro_torch.models import transformer
+    from torch.profiler import record_function
 
     from repro_torch.kernels.flash import KERNELS
     from repro_torch.kernels.ssd import KERNELS as SSD_KERNELS
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.profiling import device_profile
 
     tc_name, core_name = KERNELS[torch.bfloat16] + "<", KERNELS[torch.float32] + "<"
     ssd_tc_name = SSD_KERNELS[torch.bfloat16] + "<"
@@ -1450,7 +1462,8 @@ def profile_once(torch, fn, moe: bool = False):
             setattr(mod, name, in_range(real[(mod, name)], label))
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
+            torch.cuda.synchronize()
             w0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1571,7 +1584,7 @@ def serve(torch, dev, smi):
             if window is None and s == SERVE_SEQ:
                 prof = profile_call(torch, lambda: step(params, {"tokens": tokens}),
                                     complete=True)
-                prefill_calls += prof["sessions"]
+                prefill_calls += 1
                 check_tc_only(prof, cfg.num_layers, "gemma-7b prefill")
             emit("prefill", window=window, batch=SERVE_BATCH, seq=s, ms=ms, ms_all=times,
                  tokens_per_s=SERVE_BATCH * s / (ms * 1e-3), nvidia_smi=smi, profile=prof)
@@ -1813,7 +1826,7 @@ def ssm_serve(torch, dev, smi):
             if s == SERVE_SEQ:
                 prof = profile_call(torch, lambda: step(params, {"tokens": tokens}),
                                     complete=True)
-                calls += prof["sessions"]
+                calls += 1
                 check_tc_only(prof, attn_uses, f"{arch} prefill")
                 check_ssd_tc_only(prof, cfg.num_layers, f"{arch} prefill")
             ms = statistics.median(times)
@@ -2044,7 +2057,7 @@ def zoo_prefill(torch, model, params, batch, smi, phase, per_call, moe=False):
     check(bool(torch.isfinite(logits.float()).all()), f"{cfg.name}: non-finite prefill logits")
     prof = profile_call(torch, lambda: step(params, batch), moe=moe, complete=True)
     check_tc_only(prof, per_call, f"{cfg.name} prefill")
-    calls = 4 + prof["sessions"]
+    calls = 4 + 1          # the timed calls and the profiled one
     fields = {}
     if moe:
         fields["dropped_share"] = moe_drop_share(torch, lambda: step(params, batch))
@@ -2889,9 +2902,13 @@ def run_dryrun(torch, dev, smi):
                   f"dryrun: {arch} x {shape} counted {numbers}")
             check(rec["kind"] != "train" or coll > 0,
                   f"dryrun: the train pair {arch} x {shape} shows no collective traffic")
-            check(rec["kind"] != "train" or (outside_largest is not None
-                                             and outside_largest <= DRYRUN_OUTSIDE_REGIONS_BYTES),
-                  f"dryrun: the train pair {arch} x {shape} ran a collective of "
+            ssm_decode = rec["kind"] == "decode" and arch in SSM_MODELS
+            check(not ssm_decode or str(rec.get("ssd")).startswith(DRYRUN_SSM_DECODE_ROUTE),
+                  f"dryrun: the SSM decode pair {arch} x {shape} took the route {rec.get('ssd')}")
+            check((rec["kind"] != "train" and not ssm_decode)
+                  or (outside_largest is not None
+                      and outside_largest <= DRYRUN_OUTSIDE_REGIONS_BYTES),
+                  f"dryrun: the {rec['kind']} pair {arch} x {shape} ran a collective of "
                   f"{outside_largest} B a device that no region asked for")
             # the port fits wherever the reference does (a verdict apart from
             # the reference's is then one where the port holds less than it)

@@ -978,20 +978,23 @@ def _vocab_parallel_head(fn):
     return _lm_head
 
 
-def _per_head_mamba(fn, ssd_chunked):
-    """``apply_mamba_block``'s full-sequence pass on each device's heads
-    (they divide over the model dim, as ``in_proj``'s ``("F", "T")``
-    splits them): after the input norm, the device takes ``in_proj``'s
-    columns of its heads' z, x and dt and every column of B and C (the
-    weight gathered whole over the model dim, in the activations' dtype),
-    runs the conv on its channels and ``ssd_chunked`` on its heads, so the
-    (P, N) state stays on it, as attention runs on its query heads; the
-    output norm's mean square and ``out_proj``'s partial sums (its rows
-    are the heads') are summed over the model dim.  Under autograd the
-    norm's output takes each device's share of its gradient, summed over
-    the model dim where the norm ran, and a weight read whole takes its
-    partial gradient (the device's heads' columns, B's and C's from its
-    heads).  ``fn`` runs a decode step."""
+def _per_head_mamba(fn, ssd_chunked, routes: Dict[str, str]):
+    """``apply_mamba_block`` on each device's heads (they divide over the
+    model dim, as ``in_proj``'s ``("F", "T")`` splits them).  The
+    full-sequence pass: after the input norm, the device takes
+    ``in_proj``'s columns of its heads' z, x and dt and every column of B
+    and C (the weight gathered whole over the model dim, in the
+    activations' dtype), runs the conv on its channels and ``ssd_chunked``
+    on its heads, so the (P, N) state stays on it, as attention runs on
+    its query heads; the output norm's mean square and ``out_proj``'s
+    partial sums (its rows are the heads') are summed over the model dim.
+    Under autograd the norm's output takes each device's share of its
+    gradient, summed over the model dim where the norm ran, and a weight
+    read whole takes its partial gradient (the device's heads' columns,
+    B's and C's from its heads).  A decode step runs ``_mamba_decode``
+    where its caches lie as ``cache_specs`` lays them out; elsewhere
+    ``fn`` runs on DTensor's own plan.  The route taken goes into
+    ``routes`` under "ssd"."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.models import mamba2, nn
@@ -1000,9 +1003,15 @@ def _per_head_mamba(fn, ssd_chunked):
         d_inner, heads, g, n, _ = mamba2._dims(cfg)
         m, _ = _model_size_and_rank(x) if isinstance(x, DTensor) else (1, 0)
         _, mi = _mesh_dims(x) if isinstance(x, DTensor) else (None, None)
-        if cache is not None or mi is None or heads % m:
+        per_head = mi is not None and not heads % m
+        if per_head and cache is not None and _decode_caches_placed(x, cache):
+            routes["ssd"] = _PER_HEAD_DECODE
+            return _mamba_decode(params, x, cfg, cache)
+        if cache is not None or not per_head:
+            routes["ssd"] = _DTENSOR_SSD
             with _dtensor_plan():
                 return fn(params, x, cfg, cache, ssd_impl)
+        routes["ssd"] = _PER_HEAD_SSD
         mesh = x.device_mesh
         grad = torch.is_grad_enabled()
         whole_pl = [Replicate()] * mesh.ndim
@@ -1064,6 +1073,111 @@ def _per_head_mamba(fn, ssd_chunked):
         return x + _moved(out, batch_pl), None
 
     return apply_mamba_block
+
+
+def _decode_caches_placed(x, cache) -> bool:
+    """Whether a Mamba block's decode caches lie as ``cache_specs`` lays
+    them out for ``x`` (a DTensor): their batch split as x's, the conv
+    tail's channels split over the model dim or whole there, the SSM
+    state's heads, head dim or state dim."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    _, mi = _mesh_dims(x)
+    batch = _batch_placements(x, Replicate())
+    for t, dims in ((cache.conv, (2,)), (cache.ssm, (1, 2, 3))):
+        if not isinstance(t, DTensor) or t.device_mesh != x.device_mesh:
+            return False
+        pl = list(t.placements)
+        model = pl[mi]
+        pl[mi] = Replicate()
+        if pl != batch or not (model == Replicate() or model in [Shard(d) for d in dims]):
+            return False
+    return True
+
+
+def _mamba_decode(params, x, cfg, cache):
+    """One token through a Mamba block with every weight and cache where
+    it lies (no weight moves, no state moves): the input norm on each
+    device's rows; ``in_proj`` a split product, its output (one token's
+    projection) gathered over the model dim; the conv on the device's
+    channels of the conv tail, its output gathered; the SSM step on the
+    device's shard of the state, whichever of its dims the model dim
+    splits, its output brought onto the device's heads (summed over the
+    model dim where the state dim is split); the gate, the output norm
+    (its mean square summed over the model dim) on those heads, and
+    ``out_proj`` (its rows are the heads') a split product.  The new conv
+    tail and state are laid out as the caches."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.models import mamba2, nn
+
+    d_inner, heads, g, n, _ = mamba2._dims(cfg)
+    mesh = x.device_mesh
+    _, mi = _mesh_dims(x)
+    e = heads // mesh.size(mi) * cfg.ssm.head_dim      # the device's heads' channels
+    batch_pl = _batch_placements(x, Replicate())
+
+    def on_model(p) -> list:
+        pl = [Replicate()] * mesh.ndim
+        pl[mi] = p
+        return pl
+
+    def part(t, p=Replicate()):
+        """The device's part of ``t`` (a parameter, or its rows of an
+        activation) laid out as ``p`` on the model dim, whole elsewhere."""
+        return _to_local(t, on_model(p)) if isinstance(t, DTensor) else \
+            _local_rows(t, x, on_model(p))
+
+    def mine(t, dim):
+        return part(t, Shard(dim))
+
+    xl = _to_local(x, batch_pl)
+    b = xl.shape[0]
+    h = nn.apply_rmsnorm({"scale": part(params["norm"]["scale"])}, xl)
+    w_in = _unwrapped(params["in_proj"].to(h.dtype))
+    proj = _split_product("bsk,kn->bsn", _from_local(h, mesh, batch_pl, x.shape), w_in)
+    z, xin, bm, cm, dt = mamba2._split_proj(cfg, _to_local(proj, batch_pl))
+    tail = cache.conv
+    channels = tail.placements[mi] != Replicate()     # the tail's, over the model dim
+    conv_out, new_tail = mamba2._causal_conv(
+        part(torch.cat([xin, bm, cm], dim=-1), tail.placements[mi]),
+        part(params["conv_w"], Shard(1) if channels else Replicate()),
+        part(params["conv_b"], Shard(0) if channels else Replicate()), tail.to_local())
+    conv = _from_local(torch.nn.functional.silu(conv_out), mesh, tail.placements,
+                       (x.shape[0], 1, tail.shape[-1]))
+    conv_out = _to_local(conv, batch_pl)
+    xh = conv_out[:, 0, :d_inner].reshape(b, heads, cfg.ssm.head_dim)
+    bh, ch = (torch.repeat_interleave(t.reshape(b, g, n), heads // g, dim=1).float()
+              for t in (conv_out[:, 0, d_inner:d_inner + g * n], conv_out[:, 0, d_inner + g * n:]))
+    dt = torch.nn.functional.softplus(dt[:, 0].float() + part(params["dt_bias"]))
+    decay = torch.exp(dt * -torch.exp(part(params["A_log"])))
+    xdt = (xh * dt[..., None]).float()
+    # the step on the device's shard of the state (B, H, P, N)
+    state = cache.ssm
+    split = state.placements[mi]
+    if split == Shard(1):
+        xdt, decay, bh, ch = mine(xdt, 1), mine(decay, 1), mine(bh, 1), mine(ch, 1)
+    elif split == Shard(2):
+        xdt = mine(xdt, 2)
+    elif split == Shard(3):
+        bh, ch = mine(bh, 2), mine(ch, 2)
+    new = state.to_local() * decay[:, :, None, None] + torch.einsum("bhn,bhp->bhpn", bh, xdt)
+    y = torch.einsum("bhn,bhpn->bhp", ch, new)
+    y_pl = _batch_placements(x, Partial() if split == Shard(3) else split)
+    y = _to_local(_from_local(y, mesh, y_pl, (x.shape[0], heads, cfg.ssm.head_dim)),
+                  _batch_placements(x, Shard(1))).to(xh.dtype)
+    y = y + mine(params["D"], 0)[None, :, None].to(y.dtype) * mine(xh, 1)
+    y = y.reshape(b, 1, e) * torch.nn.functional.silu(mine(z, 2))
+    y32 = y.float()
+    square = _reduce_over_model(torch.sum(torch.square(y32), dim=-1, keepdim=True), x)
+    scale = mine(params["out_norm"]["scale"], 0)
+    y = (y32 * torch.rsqrt(square / d_inner + 1e-6) * scale).to(y.dtype)
+    y = _from_local(y, mesh, _batch_placements(x, Shard(2)), (x.shape[0], 1, d_inner))
+    out = _split_product("bsk,kn->bsn", y, _unwrapped(params["out_proj"].to(y.dtype)))
+    out = _from_local(xl + _to_local(out, batch_pl), mesh, batch_pl, x.shape)
+    return out, mamba2.MambaCache(
+        conv=_from_local(new_tail, mesh, tail.placements, tail.shape),
+        ssm=_from_local(new, mesh, state.placements, state.shape))
 
 
 class _RmsNorm(torch.autograd.Function):
@@ -1458,16 +1572,23 @@ def _expert_parallel_decode(params, x, cfg, act):
 
 
 class _LocalCacheWrites(torch.overrides.TorchFunctionMode):
-    """A decode cache's write (``cache.index_copy_(dim, rows, new)``) on
-    each device's shard of the cache, the new rows laid out as the cache.
-    DTensor's own in-place ``index_copy_`` may pick a layout for the cache
-    other than the one it has (torch 2.13 then re-labels the cache without
-    moving it, as with a replicated batch of one)."""
+    """A decode cache's writes (``cache.index_copy_(dim, rows, new)``, a
+    Mamba state's ``cache.ssm[i].copy_(new)``) on each device's shard of
+    the cache, the new values laid out as the cache.  DTensor's own
+    in-place ``index_copy_`` may pick a layout for the cache other than
+    the one it has (torch 2.13 then re-labels the cache without moving
+    it, as with a replicated batch of one)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor, Replicate, Shard
 
         kwargs = kwargs or {}
+        if func is torch.Tensor.copy_ and isinstance(args[0], DTensor) and len(args) == 2 \
+                and not kwargs:
+            cache, new = args
+            with _in_region():
+                cache.to_local().copy_(_local_rows(new, cache, list(cache.placements)))
+            return cache
         if func is torch.Tensor.index_copy_ and isinstance(args[0], DTensor) and not kwargs:
             cache, dim, index, new = args
             if Shard(dim % cache.ndim) not in cache.placements:
@@ -1500,8 +1621,8 @@ def _substituted(counter: _Counter, count_loops: bool, sharded: bool, grad: bool
     """The step's functions that the dry run replaces for the duration of
     one run: chunked attention with its loops counted, not run (without
     autograd), and, on a sharded mesh, the per-device regions above and
-    the ``Transformer``'s vocabulary-parallel head; a Mamba block's
-    full-sequence pass runs on each device's heads.  Under autograd the
+    the ``Transformer``'s vocabulary-parallel head; a Mamba block runs on
+    each device's heads.  Under autograd the
     norms run on each device's rows (``_local_rmsnorm``) and the sums and
     means of DTensors that no gradient flows through (the gradient clip's,
     the optimizer's) as ``_reduced``; without it a decode cache is written
@@ -1520,7 +1641,7 @@ def _substituted(counter: _Counter, count_loops: bool, sharded: bool, grad: bool
                      _expert_parallel(transformer.apply_moe, counter.routes, sliced=not grad))]
         targets.append((transformer.Transformer, "_lm_head",
                         _vocab_parallel_head(transformer.Transformer._lm_head)))
-        mamba = _per_head_mamba(mamba2.apply_mamba_block, mamba2.ssd_chunked)
+        mamba = _per_head_mamba(mamba2.apply_mamba_block, mamba2.ssd_chunked, counter.routes)
         targets += [(module, "apply_mamba_block", mamba) for module in (mamba2, hybrid)]
         if grad:
             targets.append((nn, "apply_rmsnorm", _local_rmsnorm(nn.apply_rmsnorm)))
@@ -1867,6 +1988,10 @@ _EXPERT_ROUTES = {
 }
 _PER_HEAD_SSD = ("per-head Mamba block: in_proj's columns of each device's heads, the scan on "
                  "its heads (the (P, N) state stays on it), out_proj summed over the model axis")
+_PER_HEAD_DECODE = ("per-head Mamba decode: no weight or state moves; in_proj and out_proj split "
+                    "products, the conv on the device's channels of the conv tail, the SSM step on "
+                    "its shard of the state, the gate and output norm on its heads")
+_DTENSOR_SSD = "DTensor's own plan: the Mamba block on DTensors"
 _TP_PRODUCTS = ("tensor-parallel: each product on the gathered layer's model-axis shard "
                 "(column then row parallel: the FFN's hidden units and the heads stay on their "
                 "device, the row-parallel outputs summed over the model axis; under autograd "
@@ -1893,7 +2018,8 @@ def lower_pair(
     On a sharded mesh attention runs on each device's query heads,
     the loss on its vocabulary shard and the MoE experts where they are
     held (``_substituted``); ``meta`` names each route (``compile()``
-    adds those that a region chooses as it runs: the MoE experts').
+    adds those that a region chooses as it runs: the MoE experts', the
+    Mamba blocks').
     ``donate`` is accepted, never modelled (the port's steps run out of
     place)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -1942,8 +2068,6 @@ def lower_pair(
         if split:
             meta["head"] = _SPLIT_HEAD
             meta["cache_writes"] = "on each device's shard of the cache"
-        if cfg.ssm is not None and shape.kind != "decode":
-            meta["ssd"] = _PER_HEAD_SSD
         if shape.kind != "decode":
             meta["products"] = _TP_PRODUCTS
         if shape.kind == "train":

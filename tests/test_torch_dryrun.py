@@ -23,6 +23,10 @@ parameters' bytes, so the memory compared is theirs.
   * The MoE experts take the route the record names: "sliced" all-gathers
     one expert weight a MoE layer (``w_down``) and moves the buffers (an
     all-to-all), "gathered" all-gathers all three.
+  * A decode step of the SSM families (mamba2-780m, zamba2-1.2b; 8 x 1
+    tokens against a 512-token cache, the port alone) runs the port's own
+    plan too: its Mamba blocks per head, and every collective that no
+    region asked for a scalar of at most 1 KB.
 """
 import json
 import math
@@ -41,6 +45,7 @@ PAIRS = [("kimi-k2-1t-a32b", "prefill_32k", 8, 512),
          ("gemma-7b", "train_4k", 16, 2048),
          ("kimi-k2-1t-a32b", "train_4k", 16, 2048)]
 IDS = [f"{a}-{s}" for a, s, _, _ in PAIRS]
+DECODE = [("mamba2-780m", "decode_32k", 8, 512), ("zamba2-1.2b", "decode_32k", 8, 512)]
 
 _RUN = """
 import dataclasses, json
@@ -75,8 +80,8 @@ print("RESULT:" + json.dumps(out))
 """
 
 
-def _run(pkg: str, prefix: str = "") -> dict:
-    script = prefix + textwrap.dedent(_RUN.format(pkg=pkg, pairs=PAIRS))
+def _run(pkg: str, pairs, prefix: str = "") -> dict:
+    script = prefix + textwrap.dedent(_RUN.format(pkg=pkg, pairs=pairs))
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                           timeout=600, env=env, cwd=ROOT)
@@ -88,13 +93,13 @@ def _run(pkg: str, prefix: str = "") -> dict:
 
 @pytest.fixture(scope="module")
 def reference():
-    return _run("repro", 'import os\nos.environ["XLA_FLAGS"] = '
-                         '"--xla_force_host_platform_device_count=8"\n')
+    return _run("repro", PAIRS, 'import os\nos.environ["XLA_FLAGS"] = '
+                                '"--xla_force_host_platform_device_count=8"\n')
 
 
 @pytest.fixture(scope="module")
 def port():
-    return _run("repro_torch")
+    return _run("repro_torch", PAIRS + DECODE)
 
 
 @pytest.mark.parametrize("pair", PAIRS, ids=IDS)
@@ -137,6 +142,14 @@ MOE = [p for p in PAIRS if p[0] == "kimi-k2-1t-a32b"]
 def test_train_step_runs_the_ports_plan(port, pair):
     rec = port[f"{pair[0]}|{pair[1]}"]
     assert rec["meta"]["products"].startswith("tensor-parallel")
+    sizes = [math.prod(shape) * itemsize for _, shape, itemsize, n in rec["outside"] if n > 0]
+    assert max(sizes, default=0) <= 1024, rec["outside"]
+
+
+@pytest.mark.parametrize("pair", DECODE, ids=[f"{a}-{s}" for a, s, _, _ in DECODE])
+def test_decode_step_runs_the_ports_plan(port, pair):
+    rec = port[f"{pair[0]}|{pair[1]}"]
+    assert rec["meta"]["ssd"].startswith("per-head Mamba decode"), rec["meta"]
     sizes = [math.prod(shape) * itemsize for _, shape, itemsize, n in rec["outside"] if n > 0]
     assert max(sizes, default=0) <= 1024, rec["outside"]
 

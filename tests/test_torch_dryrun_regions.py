@@ -9,7 +9,10 @@ equals the plain unsharded function's within 1e-5 of the largest value:
     (``_SplitWeight``: the products, the lookup, the vocabulary-parallel
     head, the caches written on their shards, the MoE experts with their
     d_model slices, the key positions split over an idle data axis at a
-    batch of one) -- the logits and every leaf of the new cache;
+    batch of one, the Mamba block per head on the shards of its conv tail
+    and SSM state, whichever dim of the state the model axis splits) --
+    the logits, every leaf of the cache written in place and every leaf
+    of the new cache the step returns;
   * whole prefill steps (tensor-parallel products on the gathered
     layers, the per-head Mamba block, regrouped chunked attention);
   * whole train steps (the same regions under autograd, the norms on
@@ -41,17 +44,29 @@ TOLERANCE = 1e-5
 # which cache_specs would take for a batch dim
 STEPS = [("decode", "gemma-7b", 4), ("decode", "gemma-7b", 1),
          ("decode", "mamba2-780m", 4), ("decode", "mamba2-780m", 1),
-         ("decode", "zamba2-1.2b", 4), ("decode", "kimi-k2-1t-a32b", 4),
+         ("decode", "zamba2-1.2b", 4), ("decode", "zamba2-1.2b", 1),
+         ("decode", "kimi-k2-1t-a32b", 4),
          ("decode", "llama4-maverick-400b-a17b", 4), ("decode", "seamless-m4t-large-v2", 1),
          ("decode", "internvl2-26b", 4),
          ("prefill", "gemma-7b", 4), ("prefill", "mistral-large-123b", 4),
          ("prefill", "mamba2-780m", 4), ("prefill", "zamba2-1.2b", 4),
          ("prefill", "seamless-m4t-large-v2", 2)]
+# the SSM decode step with its state split over the model axis on another dim
+# than the state dim (cache_specs takes the last dim that splits): an odd state
+# dim leaves the head dim; an odd head dim as well, the heads
+STATE_SPLITS = [("decode", "mamba2-780m", 4, {"state_dim": 9}),
+                ("decode", "mamba2-780m", 4, {"d_model": 288, "head_dim": 9, "state_dim": 9})]
 TRAIN_STEPS = [("train", "gemma-7b", 4), ("train", "mistral-large-123b", 4),
                ("train", "mamba2-780m", 4), ("train", "zamba2-1.2b", 4),
                ("train", "kimi-k2-1t-a32b", 4)]
 REGIONS = ["loss_parallel", "expert_parallel|gathered", "expert_parallel|sliced"]
-CASES = [f"{k}|{a}|{b}" for k, a, b in STEPS + TRAIN_STEPS] + REGIONS
+
+
+def _case(kind, arch, batch, ssm=None) -> str:
+    return "|".join([kind, arch, str(batch)] + [f"{k}={v}" for k, v in (ssm or {}).items()])
+
+
+CASES = [_case(*step) for step in STEPS + STATE_SPLITS + TRAIN_STEPS] + REGIONS
 
 _RUN = r'''
 import dataclasses, json, sys
@@ -133,12 +148,17 @@ def train_step(arch, batch):
         return max(error(g, w) for g, w in zip(got, want))
 
 
-for kind, arch, batch in steps:
+for kind, arch, batch, *ssm in steps:
+    key = "|".join([kind, arch, str(batch)] + [f"{k}={v}" for k, v in (ssm or [{}])[0].items()])
     if kind == "train":
-        out[f"{kind}|{arch}|{batch}"] = train_step(arch, batch)
+        out[key] = train_step(arch, batch)
         continue
     torch.manual_seed(0)
     cfg = get_smoke_config(arch)
+    if ssm:
+        over = dict(ssm[0])
+        cfg = dataclasses.replace(cfg, d_model=over.pop("d_model", cfg.d_model),
+                                  ssm=dataclasses.replace(cfg.ssm, **over))
     base = "decode_32k" if kind == "decode" else "prefill_32k"
     shape = dataclasses.replace(INPUT_SHAPES[base], global_batch=batch, seq_len=SEQ)
     model = build_model(cfg, dtype=torch.float32, device="cpu",
@@ -164,8 +184,8 @@ for kind, arch, batch in steps:
             c_specs = speclib.cache_specs(model, cfg, shape, mesh, ("data",))
             t_specs = speclib.token_specs(cfg, shape, mesh)
         plain_cache = tree_map(torch.clone, cache)
-        want = [make_serve_step(model)(params, tokens, plain_cache, POS)[0]]
-        want += tree_leaves(plain_cache)
+        logits, plain_new = make_serve_step(model)(params, tokens, plain_cache, POS)
+        want = [logits] + tree_leaves(plain_cache) + tree_leaves(plain_new)
     else:
         tokens = torch.randint(0, cfg.vocab_size, (batch, SEQ), dtype=torch.int32)
         want = [make_prefill_step(model)(params, {"tokens": tokens, **extra})]
@@ -179,10 +199,13 @@ for kind, arch, batch in steps:
             step = make_prefill_step(dryrun._FsdpModel(model, ("data",), kind))
             sbatch = {k: place(v, b_specs[k]) for k, v in {"tokens": tokens, **extra}.items()}
             args = (sparams, sbatch)
-        with dryrun._substituted(dryrun._Counter(None, set()), False, True, False), use_mesh_compat(mesh):
+        counter = dryrun._Counter(None, set())
+        with dryrun._substituted(counter, False, True, False), use_mesh_compat(mesh):
             got = step(*args)
-        got = [got[0]] + tree_leaves(scache) if kind == "decode" else [got]
-        out[f"{kind}|{arch}|{batch}"] = max(error(g, w) for g, w in zip(got, want))
+        got = [got[0]] + tree_leaves(scache) + tree_leaves(got[1]) if kind == "decode" else [got]
+        # a Mamba block took its per-head route
+        took = cfg.ssm is None or counter.routes.get("ssd", "").startswith("per-head Mamba")
+        out[key] = max(error(g, w) for g, w in zip(got, want)) if took else float("inf")
 
 if "loss_parallel" in regions:
     torch.manual_seed(1)
@@ -246,7 +269,8 @@ print("RESULT:" + json.dumps(out))
 @pytest.fixture(scope="module")
 def errors():
     env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="2")
-    groups = [(STEPS, ["loss_parallel"]), (TRAIN_STEPS, [r for r in REGIONS if "|" in r])]
+    groups = [(STEPS + STATE_SPLITS, ["loss_parallel"]),
+              (TRAIN_STEPS, [r for r in REGIONS if "|" in r])]
     procs = [subprocess.Popen([sys.executable, "-c", _RUN, json.dumps(group)], env=env, cwd=ROOT,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for group in groups]

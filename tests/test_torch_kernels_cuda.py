@@ -476,9 +476,8 @@ def test_flash_kernel_rejects_bf16_rows_off_16_bytes(cuda_device):
 def test_flash_dtype_picks_the_kernel(cuda_device):
     """bf16 runs the tensor-core kernel and float32 the CUDA-core one, by
     the names of the device kernels under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.flash import KERNELS, flash_attention
+    from repro_torch.profiling import device_profile
 
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     q = torch.randn((1, 256, 4, 128), generator=gen, device=cuda_device)
@@ -487,9 +486,8 @@ def test_flash_dtype_picks_the_kernel(cuda_device):
         args = (q.to(dtype), kv.to(dtype), kv.to(dtype))
         flash_attention(*args)                              # built and warm
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             flash_attention(*args)
-            torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages()]
         assert sum(f"{KERNELS[dtype]}<" in n for n in names) == 1, names
         assert not any(f"{KERNELS[other]}<" in n for n in names), names
@@ -695,14 +693,14 @@ def test_ssd_kernel_rejects_bf16_rows_off_16_bytes(cuda_device):
         ssd_scan(x, dt, A, flat[4:].view(1, 16, 1, 16), bc.bfloat16())
 
 
-# Run in a process of its own: in a long test process the profiler missed
-# the SSD kernels' records (seen on the H100 when their library was loaded
-# after an earlier profiling session), so the library is loaded and both
-# kernels are launched before the first session, as in chip_smoke.py.
+# Run in a process of its own, with both kernels launched before the first
+# profiling session, each session opened by device_profile's lead-in (a later
+# session loses the records of the first kernels it runs;
+# test_profiler_session_holds_every_kernel_launch).
 SSD_DTYPE_PROBE = """
 import json, torch
-from torch.profiler import ProfilerActivity, profile
 from repro_torch.kernels.ssd import KERNELS, ssd_scan
+from repro_torch.profiling import device_profile
 
 dev = torch.device("cuda")
 gen = torch.Generator(device=dev).manual_seed(5)
@@ -716,9 +714,8 @@ for dtype in (torch.bfloat16, torch.float32):
 torch.cuda.synchronize()
 out = {}
 for dtype, args in calls.items():
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         ssd_scan(*args)
-        torch.cuda.synchronize()
     out[str(dtype)] = [e.key for e in prof.key_averages()]
 print(json.dumps({"kernels": {str(d): k for d, k in KERNELS.items()}, "names": out}))
 """
@@ -745,6 +742,41 @@ def test_ssd_dtype_picks_the_kernel(cuda_device):
         names = res["names"][dtype]
         assert sum(f"{kernels[dtype]}<" in n for n in names) == 1, (dtype, names)
         assert not any(f"{kernels[other]}<" in n for n in names), (dtype, names)
+
+
+@pytest.mark.cuda
+def test_profiler_session_holds_every_kernel_launch(cuda_device, tmp_path):
+    """A process that has run a profiling session (a matmul) builds the
+    three kernels' libraries into a fresh build directory, idles 30 s (the
+    profiler's loss at a session's start grows with the time since the
+    first session), and profiles one call of each kernel in bfloat16 and
+    in float32, a session a call opened by ``device_profile``, each
+    library loaded and each kernel first launched inside its session:
+    every launch is in its session's profile, once, and so are two of
+    PyTorch's own kernels (``tools/profiler_probe.py``)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.profiling import LEAD_IN
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "probe.jsonl"
+    proc = subprocess.run([sys.executable, os.path.join(root, "tools", "profiler_probe.py"),
+                           "--out", str(out), "--lead-in", str(LEAD_IN), "--launch", "cold",
+                           "--gap", "30"], capture_output=True, text=True, timeout=900)
+    lines = [json.loads(line) for line in out.read_text().splitlines()] if out.exists() else []
+    assert len(lines) == 1 and lines[0]["returncode"] == 0, (proc.stderr[-3000:], lines)
+    res = lines[0]["result"]
+    assert sorted(res["kernels"]) == ["aggregate", "flash", "ssd"]
+    for name, by_dtype in res["kernels"].items():
+        assert sorted(by_dtype) == ["torch.bfloat16", "torch.float32"], (name, by_dtype)
+        for dtype, seen in by_dtype.items():
+            assert seen["events"] == 1, (name, dtype, seen)
+    for name, seen in res["torch_kernels"].items():
+        assert seen["events"] == 1, (name, seen)
+    assert proc.returncode == 0, proc.stdout[-3000:]
 
 
 @pytest.mark.cuda
