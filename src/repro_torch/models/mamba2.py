@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import nn
+from repro_torch.profiling import span
 from repro_torch.tree import tree_map
 
 PyTree = Any
@@ -233,12 +234,13 @@ def apply_mamba_block(
     Cm = Cm.reshape(b, s, g, n)
 
     if cache is None:
-        if ssd_impl == "pallas":
-            from repro_torch.kernels import ssd_ops
+        with span("mamba.ssd"):
+            if ssd_impl == "pallas":
+                from repro_torch.kernels import ssd_ops
 
-            y, final_state = ssd_ops.ssd(xh, dt, A, Bm, Cm, chunk=ssm.chunk_size)
-        else:
-            y, final_state = ssd_chunked(xh, dt, A, Bm, Cm, chunk=min(ssm.chunk_size, s))
+                y, final_state = ssd_ops.ssd(xh, dt, A, Bm, Cm, chunk=ssm.chunk_size)
+            else:
+                y, final_state = ssd_chunked(xh, dt, A, Bm, Cm, chunk=min(ssm.chunk_size, s))
         new_cache = None
     else:
         y, new_ssm = ssd_decode_step(xh[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], cache.ssm)
@@ -325,14 +327,15 @@ class Mamba2Model:
         x = nn.apply_embedding(params["embed"], tokens.to(self.device), self.dtype)
         layers = params["layers"]
         for i in range(self.cfg.num_layers):
-            x = nn.remat(self.cfg.remat, self._block, x, tree_map(lambda p: p[i], layers))
+            x = nn.remat(self.cfg.remat, self._block, x, tree_map(lambda p: p[i], layers), i)
         if last_only:
             x = x[:, -1:]
         x = nn.apply_rmsnorm(params["ln_final"], x)
         return self._lm_head(params, x), 0.0
 
-    def _block(self, x, bp):
-        return apply_mamba_block(bp, x, self.cfg, ssd_impl=self.ssd_impl)[0]
+    def _block(self, x, bp, layer):
+        with span("mamba.block", layer=layer):
+            return apply_mamba_block(bp, x, self.cfg, ssd_impl=self.ssd_impl)[0]
 
     def _lm_head(self, params, x):
         if self.cfg.tie_embeddings:

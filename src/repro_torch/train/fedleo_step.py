@@ -18,11 +18,13 @@ reference's ``broadcast_to``): nothing may write into them in place.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.optim import Optimizer
+from repro_torch.profiling import span
 from repro_torch.train.steps import TrainState, make_train_step
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -48,19 +50,22 @@ def make_fedleo_local_step(
     train_step = make_train_step(model, optimizer, grad_clip)
 
     def local_step(state: TrainState, batches: Dict):
-        r = tree_leaves(batches)[0].shape[0]
-        out = metrics = None
-        for i in range(r):
-            st = tree_map(lambda x: x[i], state)
-            for t in range(num_local_steps):
-                st, m = train_step(st, tree_map(lambda b: b[i, t], batches))
-            if out is None:
-                out = tree_map(lambda x: x.new_empty((r,) + tuple(x.shape)), st)
-                metrics = tree_map(lambda x: x.new_empty((r,) + tuple(x.shape)), m)
-            tree_map(lambda o, x: o[i].copy_(x), out, st)
-            tree_map(lambda o, x: o[i].copy_(x), metrics, m)
-            del st      # before the next replica, so one replica's new state is alive
-        return out, metrics
+        with span("fedleo.local_step"):
+            r = tree_leaves(batches)[0].shape[0]
+            out = metrics = None
+            for i in range(r):
+                with span("fedleo.replica", r=i):
+                    st = tree_map(lambda x: x[i], state)
+                    for t in range(num_local_steps):
+                        st, m = train_step(st, tree_map(lambda b: b[i, t], batches))
+                    with span("fedleo.copy_out"):
+                        if out is None:
+                            out = tree_map(lambda x: x.new_empty((r,) + tuple(x.shape)), st)
+                            metrics = tree_map(lambda x: x.new_empty((r,) + tuple(x.shape)), m)
+                        tree_map(lambda o, x: o[i].copy_(x), out, st)
+                        tree_map(lambda o, x: o[i].copy_(x), metrics, m)
+                    del st  # before the next replica, so one replica's new state is alive
+            return out, metrics
 
     return local_step
 
@@ -101,10 +106,10 @@ def make_fedleo_aggregate(use_kernel: bool = False) -> Callable:
     replica's weight (``staleness_weights``) before normalizing.
     """
 
-    def aggregate(
+    def mean(
         state: TrainState,
         weights: torch.Tensor,
-        staleness_s: Optional[torch.Tensor] = None,
+        staleness_s: Optional[torch.Tensor],
     ) -> TrainState:
         if staleness_s is not None:
             weights = staleness_weights(weights, staleness_s)
@@ -134,13 +139,20 @@ def make_fedleo_aggregate(use_kernel: bool = False) -> Callable:
                     leaves[i] = m.expand(leaves[i].shape)
             return tree_unflatten(treedef, leaves)
 
+        mean_tree = mean_tree_kernel if use_kernel else partial(tree_map, mean_leaf)
         with torch.no_grad():
-            if use_kernel:
-                agg_params = mean_tree_kernel(state.params)
-                agg_opt = mean_tree_kernel(state.opt_state)
-            else:
-                agg_params = tree_map(mean_leaf, state.params)
-                agg_opt = tree_map(mean_leaf, state.opt_state)
+            with span("fedleo.aggregate.params"):
+                agg_params = mean_tree(state.params)
+            with span("fedleo.aggregate.opt_state"):
+                agg_opt = mean_tree(state.opt_state)
         return TrainState(params=agg_params, opt_state=agg_opt, step=state.step)
+
+    def aggregate(
+        state: TrainState,
+        weights: torch.Tensor,
+        staleness_s: Optional[torch.Tensor] = None,
+    ) -> TrainState:
+        with span("fedleo.aggregate"):
+            return mean(state, weights, staleness_s)
 
     return aggregate

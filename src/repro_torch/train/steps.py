@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.optim import Optimizer, clip_by_global_norm
 from repro_torch.optim.optimizers import apply_updates
+from repro_torch.profiling import span
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 PyTree = Any
@@ -91,8 +92,10 @@ def _value_and_grad(loss_fn: Callable, params: PyTree, batch: Dict):
     leaves, treedef = tree_flatten(params)
     with torch.enable_grad():
         xs = [p.detach().requires_grad_(True) for p in leaves]
-        total, aux = loss_fn(tree_unflatten(treedef, xs), batch)
-        gs = torch.autograd.grad(total, xs, allow_unused=True)
+        with span("train_step.forward"):
+            total, aux = loss_fn(tree_unflatten(treedef, xs), batch)
+        with span("train_step.backward", adopt=True):
+            gs = torch.autograd.grad(total, xs, allow_unused=True)
     grads = tree_unflatten(treedef, [torch.zeros_like(x) if g is None else g
                                      for g, x in zip(gs, xs)])
     return (total.detach(), aux.detach()), grads
@@ -110,7 +113,7 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Dict):
         (total, ce), grads = _value_and_grad(loss_fn, state.params, batch)
-        with torch.no_grad():
+        with torch.no_grad(), span("train_step.optimizer"):
             if grad_clip is not None:
                 grads = clip_by_global_norm(grads, grad_clip)
             updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
@@ -128,7 +131,8 @@ def make_prefill_step(model) -> Callable:
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return _forward(model, params, batch, last_only=True)[0][:, -1, :]
+        with span("serve.prefill"):
+            return _forward(model, params, batch, last_only=True)[0][:, -1, :]
 
     return prefill_step
 
