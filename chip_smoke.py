@@ -8,8 +8,9 @@ script exits non-zero without a result line:
 
   1. device      — the card (nvidia-smi name and power limit, torch name).
   2. build       — nvcc builds src/repro_torch/kernels/csrc/aggregate.cu,
-                   flash.cu and ssd.cu afresh, all at once; ptxas's
-                   registers and spills of each flash and SSD kernel.
+                   flash.cu, ssd.cu and mamba_fused.cu afresh, all at
+                   once; ptxas's registers and spills of each flash, SSD
+                   and fused Mamba2 kernel.
   3. check       — each kernel against its plain PyTorch version on the
                    card, at ragged shapes and at the main paths' shapes;
                    the aggregation kernel also over whole leaf lists:
@@ -35,7 +36,12 @@ script exits non-zero without a result line:
                    and seamless-m4t's encoder's (not causal) prefill
                    shapes, the SSD
                    scan (dirty) at mamba2-780m's and zamba2-1.2b's and
-                   at mamba2's with one prompt.
+                   at mamba2's with one prompt; the Mamba2 block's fused
+                   chains (dirty: the conv with its SiLU, the gated
+                   output norm, the input norm beside ``F.rms_norm``)
+                   at the benchmark's
+                   prefill shape (128 x 2048, mamba2-780m) and at the
+                   serving phases' batch of mamba2-780m and zamba2-1.2b.
   5. main        — the FedLEO path: rounds on the quickstart scenario
                    with the full-width CNN and the CUDA aggregation
                    kernel, launch counts reset just before and read just
@@ -274,6 +280,15 @@ SSD_CHUNK = 128
 SSD_TIME_CASES = {"mamba2": (SERVE_BATCH, SERVE_SEQ, 48, 64, 1, 128),
                   "zamba2": (SERVE_BATCH, SERVE_SEQ, 64, 64, 1, 64),
                   "mamba2_b1": (1, SERVE_SEQ, 48, 64, 1, 128)}
+# the Mamba2 block's fused chains checked at (B, S): one step, S below the
+# conv's width, ragged runs of the conv's 64 positions, the serving batch;
+# and timed at (B, S, arch): the benchmark's prefill shape (the kernels
+# line's) and the serving phases' batch of each SSM
+FUSED_CHECK_SIZES = [(1, 1), (2, 3), (3, 77), (2, 203), (SERVE_BATCH, SERVE_SEQ)]
+FUSED_TIME_CASES = {"mamba2_b128": (128, SERVE_SEQ, "mamba2-780m"),
+                    "mamba2": (SERVE_BATCH, SERVE_SEQ, "mamba2-780m"),
+                    "zamba2": (SERVE_BATCH, SERVE_SEQ, "zamba2-1.2b")}
+FUSED_CHAINS = ("causal_conv_silu", "gated_rmsnorm", "input_rmsnorm")
 SSM_MODELS = {"mamba2-780m": 780_148_992, "zamba2-1.2b": 1_104_937_856}
 # Table II's baselines run 2 rounds (server events, for the asynchronous
 # ones); FedSpace runs to its 10th arrival, where its buffer (a quarter of
@@ -408,19 +423,23 @@ DRYRUN_REFERENCE = {
 
 
 def ptxas_summary(log: str) -> dict:
-    """Registers and spill bytes of each flash, SSD or aggregation kernel
-    in ``nvcc -Xptxas -v`` output, by name and integer template arguments
-    (flash: head dim, and the key tile of the CUDA-core kernel; SSD: the
-    64-column blocks of N of the tensor-core kernel, P of the CUDA-core
-    one; aggregation: K, 0 for any K above 8, and the leaf table's
-    capacity), and any warning the assembler printed."""
+    """Registers and spill bytes of each flash, SSD, aggregation or fused
+    Mamba2 kernel in ``nvcc -Xptxas -v`` output, by name and integer
+    template arguments (flash: head dim, and the key tile of the CUDA-core
+    kernel; SSD: the 64-column blocks of N of the tensor-core kernel, P of
+    the CUDA-core one; aggregation: K, 0 for any K above 8, and the leaf
+    table's capacity; the conv: its type and taps; the gated norm: its
+    type and vectors a thread), and any warning the assembler printed."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             m = re.search(r"(flash_fwd(?:_tc)?_kernel|ssd_scan(?:_tc)?_kernel"
-                          r"|aggregate_leaves_kernel)I(\w*?)EEEv", mangled)
+                          r"|aggregate_leaves_kernel|causal_conv_silu_kernel"
+                          r"|gated_rmsnorm_kernel)I(\w*?)EEEv", mangled)
             args = ",".join(re.findall(r"Li(\d+)", m.group(2))) if m else ""
+            if m and m.group(1) in ("causal_conv_silu_kernel", "gated_rmsnorm_kernel"):
+                args = ("bf16," if "bfloat16" in m.group(2) else "f32,") + args
             name = f"{m.group(1)}<{args}>" if m else mangled
             out[name] = {}
         elif name and "spill stores" in line:
@@ -1770,6 +1789,132 @@ def time_ssd(torch, dev, gen, flush, smi):
     return rows
 
 
+# --- the Mamba2 block's fused elementwise chains (SSM serving path) -------------------
+def fused_inputs(torch, gen, dev, b, s, arch, dtype):
+    """{chain: (kernel args, byte bound)} at ``arch``'s widths, as the block
+    passes them: x|B|C and z read in place from an in_proj output, the skip
+    from the conv's output, y and the residual contiguous."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.mamba2 import _dims
+
+    cfg = get_config(arch)
+    d_inner, heads, g, n, c = _dims(cfg)
+    row = 2 * d_inner + 2 * g * n + heads
+
+    def draw(*shape, mean=0.0, sd=1.0):
+        return (mean + sd * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    proj, conv_out = draw(b, s, row), draw(b, s, c)
+    item = torch.empty((), dtype=dtype).element_size()
+    return {
+        "causal_conv_silu": ((proj[..., d_inner:d_inner + c], draw(cfg.ssm.conv_width, c, sd=0.2),
+                              draw(c, sd=0.1)), 2 * b * s * c * item),
+        "gated_rmsnorm": ((draw(b, s, d_inner), draw(d_inner, mean=1.0, sd=0.1),
+                           conv_out[..., :d_inner], draw(heads, mean=1.0, sd=0.2),
+                           proj[..., :d_inner]), 4 * b * s * d_inner * item),
+        "input_rmsnorm": ((draw(b, s, cfg.d_model), draw(cfg.d_model, mean=1.0, sd=0.1)),
+                          2 * b * s * cfg.d_model * item),
+    }
+
+
+def fused_fns():
+    """{chain: (kernel, plain version)}."""
+    from repro_torch.kernels import mamba_fused as k
+    from repro_torch.kernels import mamba_fused_ref as r
+
+    return {"causal_conv_silu": (k.causal_conv_silu, r.causal_conv_silu_ref),
+            "gated_rmsnorm": (k.gated_rmsnorm, r.gated_rmsnorm_ref),
+            "input_rmsnorm": (k.gated_rmsnorm, r.gated_rmsnorm_ref)}
+
+
+def fused_errors(torch, kernel, plain, args):
+    """The kernel's and the plain chain's max abs error against the chain in
+    float32 on the same values, the largest float32 output, and whether
+    the kernel lies within half an ulp of each output (in bfloat16) plus
+    1e-5 of the largest, and no farther than the plain chain."""
+    got = kernel(*args)
+    want = plain(*(a.float() for a in args))
+    err = (got.float() - want).abs()
+    scale = float(want.abs().max())
+    limit = 1e-5 * scale + (BF16_HALF_ULP * want.abs() if got.dtype == torch.bfloat16 else 0.0)
+    plain_err = float((plain(*args).float() - want).abs().max())
+    ok = bool((err <= limit).all()) and (got.dtype != torch.bfloat16
+                                         or float(err.max()) <= plain_err)
+    return float(err.max()), plain_err, scale, ok
+
+
+def check_fused(torch, dev, gen):
+    """Each fused chain against its plain version and the float32 chain, at
+    mamba2-780m's and zamba2-1.2b's widths, in float32 and bfloat16;
+    returns the largest bf16 error by chain."""
+    worst = dict.fromkeys(FUSED_CHAINS, 0.0)
+    for arch in SSM_MODELS:
+        for b, s in FUSED_CHECK_SIZES:
+            for dtype in (torch.float32, torch.bfloat16):
+                for chain, (args, _) in fused_inputs(torch, gen, dev, b, s, arch, dtype).items():
+                    kernel, plain = fused_fns()[chain]
+                    err, plain_err, scale, ok = fused_errors(torch, kernel, plain, args)
+                    emit("check", kernel=chain, arch=arch, shape=[b, s], dtype=str(dtype),
+                         max_abs_err=err, plain_max_abs_err=plain_err, max_abs_want=scale, ok=ok)
+                    check(ok, f"{chain} disagrees with the float32 chain at {arch} {(b, s)} "
+                              f"{dtype}: {err} (plain {plain_err})")
+                    if dtype == torch.bfloat16:
+                        worst[chain] = max(worst[chain], err)
+    return worst
+
+
+def fused_library(torch):
+    """{chain: one PyTorch call computing it}, where one exists: the input
+    norm's ``F.rms_norm`` (its scale in the activations' type, as the
+    call takes it).  The conv with its SiLU and the gated norm have none."""
+    import torch.nn.functional as F
+
+    return {"input_rmsnorm": lambda x, scale: F.rms_norm(x, (x.shape[-1],), scale.to(x.dtype),
+                                                         1e-6)}
+
+
+def time_fused(torch, dev, gen, flush, smi):
+    """Each fused chain at the benchmark's prefill shape and the serving
+    phases' batch, in bfloat16, beside its plain version, the one library
+    call where one computes the chain (the port never calls it), and its
+    byte bound (inputs read once, the output written once); returns
+    {case: {chain: row}}."""
+    from repro_torch.kernels.mamba_fused import KERNELS
+
+    library = fused_library(torch)
+    rows = {}
+    for case, (b, s, arch) in FUSED_TIME_CASES.items():
+        rows[case] = {}
+        for chain, (args, nbytes) in fused_inputs(torch, gen, dev, b, s, arch,
+                                                  torch.bfloat16).items():
+            kernel, plain = fused_fns()[chain]
+            err, plain_err, _, ok = fused_errors(torch, kernel, plain, args)
+            check(ok, f"{chain} {case} at the prefill shape: {err} (plain {plain_err})")
+            kern = time_ms(torch, lambda: kernel(*args), flush)
+            name = KERNELS["causal_conv_silu" if chain == "causal_conv_silu" else "gated_rmsnorm"]
+            alone = kernel_only_ms(torch, lambda: kernel(*args), flush, name)
+            plain_ms = time_ms(torch, lambda: plain(*args), flush)
+            lib = {"library_ms": None,
+                   "library_note": "no single PyTorch call computes the chain"}
+            if chain in library:
+                call = library[chain]
+                lib_err = fused_errors(torch, call, plain, args)[0]
+                lib = {"library_ms": time_ms(torch, lambda: call(*args), flush),
+                       "library_note": "torch.nn.functional.rms_norm",
+                       "library_max_abs_err": lib_err}
+            bound = 1e3 * nbytes / HBM_BYTES_PER_S
+            row = dict(case=case, arch=arch, shape=[b, s], dtype="torch.bfloat16", bytes=nbytes,
+                       bound_ms=bound, bound_by="bytes", ms=kern, kernel_only_ms=alone,
+                       plain_ms=plain_ms, **lib,
+                       max_abs_err=err, plain_max_abs_err=plain_err, roofline_share=bound / kern,
+                       nvidia_smi=smi)
+            emit("time", kernel=chain, **row)
+            rows[case][chain] = row
+            del args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def cache_mb(cache) -> float:
     from repro_torch.tree import tree_leaves
 
@@ -1779,10 +1924,13 @@ def cache_mb(cache) -> float:
 def ssm_serve(torch, dev, smi):
     """mamba2-780m and zamba2-1.2b at full width and depth on the card, in
     bfloat16: prefill through the SSD kernel (and zamba2's shared
-    attention through the flash kernel), then greedy decoding against the
-    recurrent cache.  Returns the SSD launches of the phase."""
+    attention through the flash kernel, the block's elementwise chains
+    through the fused kernels), then greedy decoding against the
+    recurrent cache.  Returns the SSD launches of the phase and the fused
+    chains' launches by chain."""
     from repro_torch.configs import build_model, get_config
     from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.mamba_fused import causal_conv_silu, gated_rmsnorm
     from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.models.nn import count_params, tree_cast
     from repro_torch.train.steps import make_prefill_step, make_serve_step
@@ -1790,7 +1938,14 @@ def ssm_serve(torch, dev, smi):
 
     ssd_scan.launches = 0
     flash_attention.launches = 0
+    causal_conv_silu.launches = gated_rmsnorm.launches = gated_rmsnorm.norm_launches = 0
     expect_ssd = expect_flash = 0
+
+    def fused():
+        """K4's launches, K5's gated ones and K5's as the input norm, each
+        use counted where it launches."""
+        norms = gated_rmsnorm.norm_launches
+        return (causal_conv_silu.launches, gated_rmsnorm.launches - norms, norms)
     for arch, n_expected in SSM_MODELS.items():
         cfg = get_config(arch)
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -1837,6 +1992,9 @@ def ssm_serve(torch, dev, smi):
         check(ssd_scan.launches == expect_ssd and flash_attention.launches == expect_flash,
               f"{arch} prefill: {ssd_scan.launches} ssd and {flash_attention.launches} flash "
               f"launches, expected {expect_ssd} and {expect_flash}")
+        check(fused() == (expect_ssd,) * 3,
+              f"{arch} prefill: {fused()} conv, gated norm and input norm launches, expected "
+              f"{expect_ssd} each")
 
         serve_step = make_serve_step(model)
         prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, DECODE_PROMPT), generator=gen,
@@ -1855,16 +2013,19 @@ def ssm_serve(torch, dev, smi):
              prompt_tokens_per_s=SERVE_BATCH * DECODE_PROMPT / prompt_s,
              tokens_per_s=SERVE_BATCH * DECODE_GEN / gen_s, ms_per_step=1e3 * gen_s / DECODE_GEN,
              sample=toks[0, :12].tolist(), nvidia_smi=smi, profile=prof)
-        check(ssd_scan.launches == expect_ssd and flash_attention.launches == expect_flash,
-              f"{arch} decode launched a kernel")
+        check(ssd_scan.launches == expect_ssd and flash_attention.launches == expect_flash
+              and fused() == (expect_ssd,) * 3, f"{arch} decode launched a kernel")
         del params, cache, model, step, serve_step
         torch.cuda.empty_cache()
 
     launches = ssd_scan.launches
     emit("ssm_serve", ssd_scan_launches=launches, expected_ssd=expect_ssd,
          flash_attention_launches=flash_attention.launches, expected_flash=expect_flash,
+         causal_conv_silu_launches=causal_conv_silu.launches,
+         gated_rmsnorm_launches=gated_rmsnorm.launches,
+         gated_rmsnorm_norm_launches=gated_rmsnorm.norm_launches,
          peak_GB=torch.cuda.max_memory_allocated() / 1e9)
-    return launches
+    return launches, dict(zip(FUSED_CHAINS, fused()))
 
 
 def ssm_agree(torch, dev):
@@ -2976,7 +3137,7 @@ def main() -> int:
 
     # 2. build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    sources = ("aggregate", "flash", "ssd")
+    sources = ("aggregate", "flash", "ssd", "mamba_fused")
     with ThreadPoolExecutor(max_workers=len(sources)) as ex:
         libs = dict(zip(sources, ex.map(build.build, sources)))
     nvcc = subprocess.run([build.find_nvcc(), "--version"], check=True, capture_output=True,
@@ -2985,7 +3146,8 @@ def main() -> int:
          libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()},
          aggregate_ptxas=ptxas_summary(build.LOGS.get("aggregate", "")),
          flash_ptxas=ptxas_summary(build.LOGS.get("flash", "")),
-         ssd_ptxas=ptxas_summary(build.LOGS.get("ssd", "")))
+         ssd_ptxas=ptxas_summary(build.LOGS.get("ssd", "")),
+         mamba_fused_ptxas=ptxas_summary(build.LOGS.get("mamba_fused", "")))
 
     # 3. each kernel against its plain version, on the card
     n_main = count_params(init_cnn(torch.Generator().manual_seed(0)))
@@ -2996,6 +3158,7 @@ def main() -> int:
     agg_err = max(agg_err, check_train_trees(torch, dev, gen))
     check_flash(torch, dev, gen)
     check_ssd(torch, dev, gen)
+    fused_err = check_fused(torch, dev, gen)
 
     # 4. times: kernel, plain version, one library call (never used by the port)
     flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)   # 256 MB > L2
@@ -3004,6 +3167,7 @@ def main() -> int:
     time_pytree(torch, dev, gen, flushes["clean"], smi)
     flash_timed = time_flash(torch, dev, gen, flushes["dirty"], smi)
     ssd_row = time_ssd(torch, dev, gen, flushes["dirty"], smi)["mamba2"]
+    fused_rows = time_fused(torch, dev, gen, flushes["dirty"], smi)["mamba2_b128"]
     del flush_buf, flushes
 
     # 5-6. the FedLEO path, and a small round against the CPU
@@ -3027,7 +3191,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 14-15. the SSM serving path, and its agreement checks
-    ssd_launches = ssm_serve(torch, dev, smi)
+    ssd_launches, fused_launches = ssm_serve(torch, dev, smi)
     ssm_agree(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3112,7 +3276,21 @@ def main() -> int:
         "bound_ms": ssd_row["bound_ms"],
         "bound_by": ssd_row["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    }] + [{
+        "name": chain,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_fused.cu",
+        "replaces": None,
+        "tpu": None,
+        "launches": fused_launches[chain],
+        "max_abs_err": fused_err[chain],
+        "max_err": fused_err[chain],
+        "ms": fused_rows[chain]["ms"],
+        "plain_ms": fused_rows[chain]["plain_ms"],
+        "bound_ms": fused_rows[chain]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": fused_rows[chain]["library_ms"],
+    } for chain in FUSED_CHAINS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -13,6 +13,11 @@
     the final state out, in one launch): the sequence mixer of the SSM
     and hybrid models' prefill.  Port of the Pallas kernel
     ``src/repro/kernels/ssd.py::ssd_scan``.
+  * ``mamba_fused`` — the Mamba2 block's elementwise chains on the
+    prefill path, each one pass over device memory: the causal conv with
+    its bias and SiLU, and the skip, gate and RMSNorm (also the block's
+    input norm).  They replace no TPU kernel: the reference leaves these
+    chains to XLA's fusion.
 
 Each kernel ships as ``<name>.py`` (the wrapper that launches
 ``csrc/<name>.cu``), ``<name>_ops.py`` (dispatch: the kernel for CUDA

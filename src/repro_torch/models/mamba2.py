@@ -208,19 +208,32 @@ def apply_mamba_block(
 ) -> Tuple[torch.Tensor, Optional[MambaCache]]:
     """One pre-norm Mamba2 block.  Prefill (cache=None): the SSD scan
     runs as ``ssd_impl``, "xla" (the plain chunked scan) or "pallas"
-    (the CUDA kernel on the card, the padded plain version on the CPU).
-    Decode: x is (B, 1, D) and the recurrence steps once from the cache."""
+    (the CUDA kernel on the card, the padded plain version on the CPU);
+    with "pallas" the input norm, the conv with its SiLU, and the skip,
+    gate and output norm run as fused kernels too (``mamba_fused_ops``:
+    the plain chains on the CPU).  Decode: x is (B, 1, D) and the
+    recurrence steps once from the cache."""
     ssm = cfg.ssm
     d_inner, nheads, g, n, conv_ch = _dims(cfg)
+    from repro_torch.kernels import mamba_fused_ops, mamba_fused_ref
+
+    fused = cache is None and ssd_impl == "pallas"
+    # the input norm and the skip + gate + output norm: one chain, two routes
+    norm = mamba_fused_ops.gated_rmsnorm if fused else mamba_fused_ref.gated_rmsnorm_ref
     residual = x
-    h = nn.apply_rmsnorm(params["norm"], x)
+    h = norm(x, params["norm"]["scale"])
     proj = h @ params["in_proj"].to(h.dtype)
     z, xin, Bm, Cm, dt = _split_proj(cfg, proj)
 
-    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
-    prev = cache.conv if cache is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, params["conv_w"], params["conv_b"], prev)
-    conv_out = F.silu(conv_out)
+    if fused:
+        # x|B|C read in place: the in_proj columns after z
+        conv_out = mamba_fused_ops.causal_conv_silu(
+            proj[..., d_inner: d_inner + conv_ch], params["conv_w"], params["conv_b"])
+    else:
+        conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+        prev = cache.conv if cache is not None else None
+        conv_out, new_conv = _causal_conv(conv_in, params["conv_w"], params["conv_b"], prev)
+        conv_out = F.silu(conv_out)
     # views into conv_out: the kernel reads them through their strides
     xin = conv_out[..., :d_inner]
     Bm = conv_out[..., d_inner: d_inner + g * n]
@@ -247,10 +260,7 @@ def apply_mamba_block(
         y = y[:, None]
         new_cache = MambaCache(conv=new_conv, ssm=new_ssm)
 
-    y = y + params["D"][None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(b, s, d_inner)
-    y = y * F.silu(z)
-    y = nn.apply_rmsnorm(params["out_norm"], y)
+    y = norm(y.reshape(b, s, d_inner), params["out_norm"]["scale"], x=xin, D=params["D"], z=z)
     out = residual + y @ params["out_proj"].to(y.dtype)
     return out, new_cache
 

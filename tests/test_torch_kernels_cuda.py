@@ -15,7 +15,10 @@ versions on the same input values, within float32 rounding
 (``assert_flash_close``, ``assert_ssd_close``) plus, in bfloat16, half
 an ulp of each output.  Flash attention and the SSD scan run bfloat16
 on the tensor cores and float32 on the CUDA cores; both meet the same
-limit.
+limit.  The Mamba2 block's fused chains (the conv with its SiLU, the
+gated norm) are held to the same chain in float32 within half an ulp of
+each output in bfloat16 plus 1e-5 of the largest (``assert_fused_close``),
+and to no larger an error than the plain bfloat16 chain's.
 """
 import pytest
 import torch
@@ -810,11 +813,12 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda_device):
 @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
 def test_ssm_prefill_on_the_card_launches_ssd_per_layer(cuda_device, arch):
     """A smoke model's prefill through ssd_impl="pallas" at a ragged S:
-    one SSD launch per Mamba layer (and one flash launch per use of
-    zamba2's shared attention block), and the logits of the CPU run
-    within 2e-3."""
+    one SSD and one conv launch and two fused norm launches per Mamba
+    layer (and one flash launch per use of zamba2's shared attention
+    block), and the logits of the CPU run within 2e-3."""
     from repro_torch.configs import build_model, get_smoke_config
     from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.mamba_fused import causal_conv_silu, gated_rmsnorm
     from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.train.steps import make_prefill_step
     from repro_torch.tree import tree_map
@@ -827,6 +831,8 @@ def test_ssm_prefill_on_the_card_launches_ssd_per_layer(cuda_device, arch):
     tokens = torch.randint(0, cfg.vocab_size, (2, 77), generator=torch.Generator().manual_seed(1))
     want = make_prefill_step(cpu)(params, {"tokens": tokens})
     ssd_before, flash_before = ssd_scan.launches, flash_attention.launches
+    conv_before, norm_before = causal_conv_silu.launches, gated_rmsnorm.launches
+    plain_norm_before = gated_rmsnorm.norm_launches
     old = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -837,6 +843,10 @@ def test_ssm_prefill_on_the_card_launches_ssd_per_layer(cuda_device, arch):
         torch.backends.cuda.matmul.allow_tf32 = old
     assert ssd_scan.launches == ssd_before + cfg.num_layers
     assert flash_attention.launches == flash_before + getattr(card, "n_attn_uses", 0)
+    assert causal_conv_silu.launches == conv_before + cfg.num_layers
+    assert gated_rmsnorm.launches == norm_before + 2 * cfg.num_layers
+    # one of each block's two: its input norm, with neither skip nor gate
+    assert gated_rmsnorm.norm_launches == plain_norm_before + cfg.num_layers
     assert float((got.cpu() - want).abs().max()) <= 2e-3
 
 
@@ -873,12 +883,16 @@ def _smoke_fedleo(device, opt_name, r=2):
 @pytest.mark.parametrize("opt_name,launches", [("adam", 2), ("adafactor", 2), ("sgd", 1)])
 def test_fedleo_step_and_aggregate_on_the_card(cuda_device, opt_name, launches):
     """One K1 launch for each tree with a replicated leaf (SGD's state
-    has none); the aggregate equals the plain fmaf chain on the card's
-    own state, leaf by leaf (Adam's int32 step through float32 and back);
+    has none), and no launch of the fused Mamba2 kernels; the aggregate
+    equals the plain fmaf chain on the card's own state, leaf by leaf
+    (Adam's int32 step through float32 and back);
     the local step's losses and first moments agree with the CPU's within
     1e-4 of their largest value (float32, TF32 off)."""
     from repro_torch.tree import tree_leaves
 
+    from repro_torch.kernels.mamba_fused import causal_conv_silu, gated_rmsnorm
+
+    fused_before = (causal_conv_silu.launches, gated_rmsnorm.launches)
     old = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -886,6 +900,8 @@ def test_fedleo_step_and_aggregate_on_the_card(cuda_device, opt_name, launches):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
     assert n == launches
+    # training runs the plain chains: the fused kernels have no backward
+    assert (causal_conv_silu.launches, gated_rmsnorm.launches) == fused_before
     w = torch.tensor([0.25, 0.75], device=cuda_device)
     for x, m in zip(tree_leaves(stepped), tree_leaves(agg)):
         if x.ndim == 0 or x.shape[0] != 2:
@@ -958,3 +974,183 @@ def test_apply_moe_on_the_card_matches_the_cpu(cuda_device, top_k, capacity_fact
     torch.cuda.synchronize()
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert abs(float(aux_c) - float(aux)) <= 1e-6
+
+
+# --- the Mamba2 block's fused elementwise chains (K4, K5) --------------------------
+# Each kernel rounds once, as it stores, where the plain bf16 chain rounds after
+# every operation: both are held to the same chain computed in float32 on the
+# same input values, the kernel within half a bfloat16 ulp of each output (its one
+# rounding) plus 1e-5 of the largest output (float32 arithmetic in another order,
+# the fast exp of SiLU), and no farther than the plain chain at its worst.  In
+# float32 the kernels are held within 1e-5 of the largest output.
+FUSED_ARCHS = ["mamba2-780m", "zamba2-1.2b"]
+# (B, S): one step, S below the conv's width, ragged runs of 64 positions
+FUSED_SIZES = [(1, 1), (2, 3), (3, 77), (2, 203)]
+
+
+def fused_widths(arch):
+    """(d_model, d_inner, heads, conv channels, in_proj width) of ``arch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.mamba2 import _dims
+
+    cfg = get_config(arch)
+    d_inner, heads, g, n, conv_ch = _dims(cfg)
+    return cfg.d_model, d_inner, heads, conv_ch, 2 * d_inner + 2 * g * n + heads
+
+
+def assert_fused_close(got, plain, want):
+    """``got`` (the kernel) and ``plain`` (the plain chain in the same
+    type) against ``want`` (the chain in float32)."""
+    err = (got.float() - want).abs()
+    limit = 1e-5 * float(want.abs().max())
+    if got.dtype == torch.bfloat16:
+        limit = limit + 2.0 ** -8 * want.abs()
+        assert float(err.max()) <= float((plain.float() - want).abs().max())
+    assert bool((err <= limit).all()), float((err - limit).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", FUSED_SIZES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("arch", FUSED_ARCHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_causal_conv_silu_matches_plain_chain(cuda_device, arch, size, dtype):
+    """K4 on the x|B|C columns of an in_proj output, read in place, as the
+    block passes them."""
+    from repro_torch.kernels.mamba_fused import causal_conv_silu
+    from repro_torch.kernels.mamba_fused_ref import causal_conv_silu_ref
+
+    _, d_inner, _, c, row = fused_widths(arch)
+    gen = torch.Generator(device=cuda_device).manual_seed(len(arch) + size[1])
+    proj = torch.randn((*size, row), generator=gen, device=cuda_device).to(dtype)
+    xbc = proj[..., d_inner: d_inner + c]
+    w = (torch.randn((4, c), generator=gen, device=cuda_device) * 0.2).to(dtype)
+    b = (torch.randn((c,), generator=gen, device=cuda_device) * 0.1).to(dtype)
+    before = causal_conv_silu.launches
+    got = causal_conv_silu(xbc, w, b)
+    torch.cuda.synchronize()
+    assert causal_conv_silu.launches == before + 1
+    assert got.shape == xbc.shape and got.dtype == dtype and got.is_contiguous()
+    assert_fused_close(got, causal_conv_silu_ref(xbc, w, b),
+                       causal_conv_silu_ref(xbc.float(), w.float(), b.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", FUSED_SIZES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("arch", FUSED_ARCHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["gated", "input-norm"])
+def test_gated_rmsnorm_matches_plain_chain(cuda_device, arch, size, dtype, form):
+    """K5 as the block's output norm (y from the scan, the skip a view of the
+    conv's output, the gate a view of the in_proj output) and as its input
+    norm over d_model."""
+    from repro_torch.kernels.mamba_fused import gated_rmsnorm
+    from repro_torch.kernels.mamba_fused_ref import gated_rmsnorm_ref
+
+    d, d_inner, heads, c, row = fused_widths(arch)
+    gen = torch.Generator(device=cuda_device).manual_seed(len(arch) + size[1])
+    e = d_inner if form == "gated" else d
+    y = torch.randn((*size, e), generator=gen, device=cuda_device).to(dtype)
+    scale = (1.0 + 0.1 * torch.randn((e,), generator=gen, device=cuda_device)).to(dtype)
+    kw = {}
+    if form == "gated":
+        conv_out = torch.randn((*size, c), generator=gen, device=cuda_device).to(dtype)
+        proj = torch.randn((*size, row), generator=gen, device=cuda_device).to(dtype)
+        kw = dict(x=conv_out[..., :d_inner], D=torch.rand((heads,), generator=gen,
+                                                          device=cuda_device).to(dtype) + 0.5,
+                  z=proj[..., :d_inner])
+    before = (gated_rmsnorm.launches, gated_rmsnorm.norm_launches)
+    got = gated_rmsnorm(y, scale, **kw)
+    torch.cuda.synchronize()
+    assert (gated_rmsnorm.launches, gated_rmsnorm.norm_launches) == (
+        before[0] + 1, before[1] + (form != "gated"))
+    assert got.shape == y.shape and got.dtype == dtype and got.is_contiguous()
+    want = gated_rmsnorm_ref(y.float(), scale.float(),
+                             **{k: v.float() for k, v in kw.items()})
+    assert_fused_close(got, gated_rmsnorm_ref(y, scale, **kw), want)
+
+
+@pytest.mark.cuda
+def test_gated_rmsnorm_takes_a_float32_scale_with_bf16_rows(cuda_device):
+    """A float32 scale (float32 weights served in bf16) multiplies in
+    float32, as the plain norm's does."""
+    from repro_torch.kernels.mamba_fused import gated_rmsnorm
+    from repro_torch.kernels.mamba_fused_ref import gated_rmsnorm_ref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    y = torch.randn((2, 33, 1536), generator=gen, device=cuda_device).bfloat16()
+    scale = 1.0 + 0.1 * torch.randn((1536,), generator=gen, device=cuda_device)
+    got = gated_rmsnorm(y, scale)
+    assert_fused_close(got, gated_rmsnorm_ref(y, scale), gated_rmsnorm_ref(y.float(), scale))
+
+
+@pytest.mark.cuda
+def test_fused_kernels_reject_what_they_do_not_take(cuda_device):
+    from repro_torch.kernels.mamba_fused import causal_conv_silu, gated_rmsnorm
+
+    proj = torch.zeros((2, 8, 72), dtype=torch.bfloat16, device=cuda_device)
+    w = torch.zeros((4, 32), dtype=torch.bfloat16, device=cuda_device)
+    b = torch.zeros((32,), dtype=torch.bfloat16, device=cuda_device)
+    ok = proj[..., 8:40]
+    causal_conv_silu(ok, w, b)
+    gated_rmsnorm(ok, b)
+    with pytest.raises(ValueError, match="16-byte"):      # rows start 8 bytes in
+        causal_conv_silu(proj[..., 4:36], w, b)
+    with pytest.raises(ValueError, match="16-byte"):      # rows 68 elements apart
+        gated_rmsnorm(torch.zeros((2, 8, 68), dtype=torch.bfloat16, device=cuda_device)[..., 8:40],
+                      b)
+    with pytest.raises(TypeError):
+        causal_conv_silu(ok.half(), w, b)
+    with pytest.raises(TypeError):
+        gated_rmsnorm(torch.zeros((1, 2, 32), dtype=torch.float64, device=cuda_device), b)
+    with pytest.raises(ValueError, match="CUDA"):
+        causal_conv_silu(ok.cpu(), w.cpu(), b.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        gated_rmsnorm(ok.cpu(), b.cpu())
+    with pytest.raises(ValueError, match="w must be"):        # 5 taps
+        causal_conv_silu(ok, torch.zeros((5, 32), dtype=torch.bfloat16, device=cuda_device), b)
+    with pytest.raises(ValueError, match="whole number"):
+        causal_conv_silu(proj[..., 8:20], w[:, :12], b[:12])
+    y = torch.zeros((1, 2, 32), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="skip"):
+        gated_rmsnorm(y, b, x=y)
+    with pytest.raises(ValueError, match="head"):          # a head of 4 columns
+        gated_rmsnorm(y, b, x=y, D=torch.ones((8,), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_mamba2_prefill_launches_the_fused_kernels_per_layer(cuda_device, monkeypatch):
+    """mamba2-780m whole, bf16 weights: one prefill call launches K4 once and
+    K5 twice per layer (48 and 96), and its last-position logits lie within
+    the card's bf16 limit (2e-2 x sqrt(layers) of the largest logit,
+    ``tools/bf16_gap.py``) of the plain chains' on the card."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.kernels import mamba_fused_ops, mamba_fused_ref
+    from repro_torch.kernels.mamba_fused import causal_conv_silu, gated_rmsnorm
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.models.nn import tree_cast
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = get_config("mamba2-780m")
+    model = build_model(cfg, ssd_impl="pallas")
+    params = tree_cast(model.init(torch.Generator(device=cuda_device).manual_seed(0)),
+                       torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(1))
+    step = make_prefill_step(model)
+    before = (causal_conv_silu.launches, gated_rmsnorm.launches, ssd_scan.launches,
+              gated_rmsnorm.norm_launches)
+    got = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    # K5's 96: 48 gated output norms and 48 input norms, each use counted where it launches
+    assert (causal_conv_silu.launches - before[0], gated_rmsnorm.launches - before[1],
+            ssd_scan.launches - before[2], gated_rmsnorm.norm_launches - before[3]) == (
+        48, 96, 48, 48)
+    monkeypatch.setattr(mamba_fused_ops, "causal_conv_silu", mamba_fused_ref.causal_conv_silu_ref)
+    monkeypatch.setattr(mamba_fused_ops, "gated_rmsnorm", mamba_fused_ref.gated_rmsnorm_ref)
+    plain = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert (causal_conv_silu.launches, gated_rmsnorm.launches) == (before[0] + 48,
+                                                                   before[1] + 96)
+    scale = float(plain.float().abs().max())
+    err = float((got.float() - plain.float()).abs().max())
+    assert err <= 2e-2 * cfg.num_layers ** 0.5 * scale, (err, scale)
