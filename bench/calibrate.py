@@ -78,7 +78,8 @@ def main(argv=None) -> int:
                 cnum = check.train_numbers(control, ref)
                 emit(seed=seed, side="control-leaves", numbers={}, leaves=control)
             else:
-                control = [ref_model.last_logits(rd["ref_params"], t, cell.config, ref_model.fp8)
+                control = [ref_model.last_logits(rd["ref_params"], t, cell.config,
+                                                 cell.family.reference.blocks, ref_model.fp8)
                            for t in rd["prompts"]]
                 cnum = check.prefill_numbers(control, rd["reference"])
             emit(seed=seed, side="control", numbers=cnum)

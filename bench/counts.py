@@ -5,9 +5,13 @@ Everything here counts work from shapes alone, against NVIDIA's data
 sheet for the H100 SXM (dense rates, 700 W).  It counts the same work
 whatever implements it, so a change that replaces a kernel does not
 move its own yardstick.  The kernel bounds are frozen copies of
-``chip_smoke.py``'s ``aggregate_bound_ms`` and ``ssd_bound_ms``.
+``chip_smoke.py``'s ``aggregate_bound_ms`` and ``ssd_bound_ms``, and of
+the byte counts of its ``fused_inputs`` for K4 and K5.  A step's FLOPs
+sum its family's terms (``bench/families/``).
 """
 from __future__ import annotations
+
+from bench import harness
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM, float32 outside the tensor cores
@@ -44,54 +48,32 @@ def ssd_bound_ms(b, s, h, p, g, n, chunk, itemsize):
             nbytes, flops)
 
 
+def causal_conv_silu_bound_ms(b, s, c, itemsize):
+    """Least time for one launch of K4 over (b, s, c) channels: x|B|C read
+    once and the output written once (the taps and the bias, a few KB, not
+    counted); returns (ms, bound_by, bytes).  Its few operations an element
+    take a tenth of that time at the float32 rate."""
+    nbytes = 2 * b * s * c * itemsize
+    return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes", nbytes
+
+
+def gated_rmsnorm_bound_ms(b, s, e, gated, itemsize):
+    """Least time for one launch of K5 over (b, s, e): y, with ``gated``
+    also the skip's x and the gate z, read once and the output written
+    once (the scale and D not counted); returns (ms, bound_by, bytes)."""
+    nbytes = (4 if gated else 2) * b * s * e * itemsize
+    return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes", nbytes
+
+
 # --- model FLOPs ------------------------------------------------------------------------
-def ssm_dims(cfg: dict):
-    """(d_inner, heads, groups, state, conv channels, in_proj width) of
-    a configuration's Mamba2 block."""
-    ssm = cfg["ssm"]
-    d_inner = ssm["expand"] * cfg["d_model"]
-    heads = d_inner // ssm["head_dim"]
-    g, n = ssm["num_groups"], ssm["state_dim"]
-    conv_ch = d_inner + 2 * g * n
-    return d_inner, heads, g, n, conv_ch, 2 * d_inner + 2 * g * n + heads
-
-
-def forward_flops(cfg: dict, b: int, s: int, head_positions: int) -> dict:
-    """Model FLOPs of one forward pass over b sequences of s tokens, by
-    term: every product 2*m*n*k (the depthwise conv's taps too), the SSD
-    scan's operations as ``ssd_flops`` counts them, and the tied head
-    over ``head_positions`` positions of each sequence.  Norms, gates and
-    the embedding gather are not products and are not counted."""
-    d = cfg["d_model"]
-    tokens = b * s
-    d_inner, heads, g, n, conv_ch, proj = ssm_dims(cfg)
-    ssm = cfg["ssm"]
-    layers = cfg["num_layers"]
-    return {
-        "mamba_proj": layers * tokens * 2.0 * d * (proj + d_inner),
-        "mamba_conv": layers * tokens * 2.0 * ssm["conv_width"] * conv_ch,
-        "scan": layers * ssd_flops(b, s, heads, ssm["head_dim"], n, ssm["chunk_size"]),
-        "head": b * head_positions * 2.0 * d * cfg["vocab_size"],
-    }
-
-
 def train_step_flops(cfg: dict, b: int, s: int) -> float:
     """Model FLOPs of one training step on b sequences of s tokens:
-    3 x the forward pass with the head over every position.  Remat's
-    recompute is not counted."""
-    return 3.0 * sum(forward_flops(cfg, b, s, s).values())
+    3 x the forward pass (the family's ``forward_flops``) with the head
+    over every position.  Remat's recompute is not counted."""
+    return 3.0 * sum(harness.family(cfg).forward_flops(cfg, b, s, s).values())
 
 
 def prefill_flops(cfg: dict, b: int, s: int) -> float:
     """Model FLOPs of one prefill call: the forward pass, the head over
     the last position only (what the call returns)."""
-    return sum(forward_flops(cfg, b, s, 1).values())
-
-
-def param_count(cfg: dict) -> int:
-    """Parameters of the configuration, counted from its shapes."""
-    d = cfg["d_model"]
-    d_inner, heads, g, n, conv_ch, proj = ssm_dims(cfg)
-    w = cfg["ssm"]["conv_width"]
-    block = d + d * proj + w * conv_ch + conv_ch + 3 * heads + d_inner + d_inner * d
-    return cfg["num_layers"] * block + cfg["vocab_size"] * d + d
+    return sum(harness.family(cfg).forward_flops(cfg, b, s, 1).values())

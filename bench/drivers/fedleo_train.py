@@ -150,7 +150,8 @@ def reference(cell: harness.Cell, seed: int, fed, device: torch.device,
     """The plain reference's readings of the checked steps, from the
     seed's weights and the batches the program was fed."""
     p0 = weights.make(cell.config, seed, torch.float32, device)
-    return ref_train.follow(dict(ref_model.leaf_items(p0)), fed, cell.config, cell.traffic, prec)
+    return ref_train.follow(dict(ref_model.leaf_items(p0)), fed, cell.config, cell.traffic,
+                            cell.family.reference.blocks, prec)
 
 
 def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: torch.device,

@@ -55,6 +55,17 @@ def checked_prompts(calls, seed: int, count: int):
             for j in range(0, len(rows), REF_BLOCK)]
 
 
+def launch_shapes(kernels, made, b: int, lengths) -> dict:
+    """The launches of the hand-written kernels in one profiled cycle of
+    calls of ``b`` prompts of each of ``lengths``, by key: one shape a
+    launch, each use's ``made`` launches spread evenly over the calls."""
+    out: dict = {}
+    for k, m in zip(kernels, made):
+        out.setdefault(k.key, []).extend(k.shape(b, s) for s in lengths
+                                         for _ in range(m // len(lengths)))
+    return out
+
+
 def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: torch.device,
         t0: float) -> dict:
     from repro_torch.configs import build_model
@@ -104,26 +115,22 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: torc
 
     profile, launches = None, {}
     if trace and on_card:
-        from repro_torch.kernels import ssd
-
-        cycle_lengths, made = [], 0
+        itemsize = torch.empty((), dtype=getattr(torch, sv["compute_dtype"])).element_size()
+        kernels = cell.family.prefill_kernels(cfg, itemsize)
+        cycle_lengths, made = [], []
 
         def session():
             nonlocal cycle_lengths, made
-            before = ssd.ssd_scan.launches
+            before = [k.count() for k in kernels]
             cycle_lengths = [next(order) for _ in lengths]
             with tracing.device_profile() as prof:
                 for s in cycle_lengths:
                     call(s)
-            made = ssd.ssd_scan.launches - before
-            return tracing.read(prof), [(tuple(ssd.KERNELS.values()), made)]
+            made = [k.count() - n for k, n in zip(kernels, before)]
+            return tracing.read(prof), [(k.names, m) for k, m in zip(kernels, made)]
 
         profile = tracing.whole_profile(session)
-        d_inner, heads, g, n, _, _ = counts.ssm_dims(cfg)
-        ssm = cfg["ssm"]
-        itemsize = torch.empty((), dtype=getattr(torch, sv["compute_dtype"])).element_size()
-        launches["ssd"] = [(b, s, heads, ssm["head_dim"], g, n, ssm["chunk_size"], itemsize)
-                           for s in cycle_lengths for _ in range(made // len(cycle_lengths))]
+        launches = launch_shapes(kernels, made, b, cycle_lengths)
 
     tokens = sum(b * s for s, _, _ in calls)
     run_record = {
@@ -146,7 +153,8 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: torc
         torch.cuda.empty_cache()
     ref_params = ref_model.as_float32(weights.make(cfg, seed, getattr(torch, sv["param_dtype"]),
                                                    device))
-    ref = [ref_model.last_logits(ref_params, t, cfg) for t in prompts]
+    ref = [ref_model.last_logits(ref_params, t, cfg, cell.family.reference.blocks)
+           for t in prompts]
     run_record["numbers"] = check.prefill_numbers(prog, ref)
     run_record["readings"] = {"checked_prompts": picked, "prompts": prompts, "program": prog,
                               "reference": ref, "ref_params": ref_params}

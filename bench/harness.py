@@ -6,7 +6,10 @@ metric or cell is a file of its own, found by the name that
 ``BENCHMARK.json`` gives it:
 
   * configuration: the ``file`` of its ``configs`` entry (sizes, dtypes,
-    routes), the plain reference in ``bench/reference/`` beside it;
+    routes), whose ``family`` names ``bench/families/<family>.py``: the
+    program's configuration, the weight layout, the FLOP count, the plain
+    reference of the layers (in ``bench/reference/``) and the prefill's
+    hand-written kernels of that family (see ``bench/families/``);
   * traffic mix: ``bench/traffic/<traffic>.json``, whose ``kind`` names
     the driver ``bench/drivers/<kind>.py`` that generates it; it holds
     the driver's ``KEYS`` and, besides, only ``kind``, ``why`` and
@@ -27,7 +30,7 @@ import importlib.util
 import json
 import math
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -48,6 +51,24 @@ class Cell:
     @property
     def kind(self) -> str:
         return self.traffic["kind"]
+
+    @property
+    def family(self):
+        return family(self.config)
+
+
+class KernelUse(NamedTuple):
+    """One use of a hand-written kernel on a driver's timed path.
+
+    ``key`` names its launches' shapes in a run record's ``launches``,
+    ``names`` its device kernels as the profiler names them, ``count()``
+    reads the program's launch counter of this use, and ``shape(batch,
+    length)`` gives one launch's shape in a call of ``batch`` rows of
+    ``length`` tokens, as the metric that reads ``key`` takes it."""
+    key: str
+    names: Tuple[str, ...]
+    count: Callable[[], int]
+    shape: Callable[[int, int], tuple]
 
 
 def load_json(path: Path) -> dict:
@@ -104,21 +125,16 @@ def metric_reader(name: str, root: Path = ROOT):
     return module.read
 
 
+def family(cfg: dict):
+    """The module ``bench/families/<family>.py`` of a configuration file's
+    ``family``."""
+    return importlib.import_module(f"bench.families.{cfg['family']}")
+
+
 def program_config(cfg: dict, **overrides):
     """The program's ``ArchConfig`` holding exactly the sizes of the
-    configuration file, for the program's registered architecture."""
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import SSMConfig
-
-    base = get_config(cfg["arch"])
-    if base.family != cfg["family"] or cfg["family"] != "ssm":
-        raise ValueError(f"{cfg['arch']}: the benchmark runs Mamba2 (ssm) models; the program "
-                         f"has a {base.family} model, the file says {cfg['family']}")
-    fields = dict(num_layers=cfg["num_layers"], d_model=cfg["d_model"],
-                  vocab_size=cfg["vocab_size"], tie_embeddings=cfg["tie_embeddings"],
-                  ssm=SSMConfig(**cfg["ssm"]))
-    fields.update(overrides)
-    return dataclasses.replace(base, **fields)
+    configuration file, as its family builds it."""
+    return family(cfg).program_config(cfg, **overrides)
 
 
 def sync(device) -> None:

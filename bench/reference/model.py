@@ -1,17 +1,18 @@
-"""Plain PyTorch forward pass of the benchmark's configurations.
+"""Plain PyTorch forward pass of the benchmark's configurations: what
+every family shares.
 
 Written from the papers' equations, in float32, with no kernel, cache or
 batching of the program's; it imports nothing of the program.  It takes
-the weights in the tree layout of ``bench/weights.py``:
-
-  * Mamba2 block [arXiv:2405.21060]: pre-norm RMSNorm; one input
-    projection to (z, x, B, C, dt); a causal depthwise conv of width W
-    over (x, B, C) and SiLU; dt = softplus(dt + dt_bias), A = -exp(A_log);
-    the SSD scan h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t, y_t = C_t h_t
-    (chunked as the paper's minimal listing: in-chunk quadratic term,
-    chunk states, and the chunk-to-chunk recurrence by a segment sum);
-    y + D x, gated by SiLU(z), RMSNorm, output projection, residual.
-  * A final RMSNorm and the head tied to the embedding table.
+the weights in the tree layout of ``bench/weights.py``: the embedding,
+then the family's layers, given as ``blocks`` (the ``blocks`` function
+of the family's own reference module beside this one, e.g.
+``mamba2.py``: each block a function of the residual stream and the
+embedding output), then a final RMSNorm and the head tied to the
+embedding table.  The SSD scan is here for every family whose layers
+hold it: h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t, y_t = C_t h_t,
+chunked as the paper's minimal listing [arXiv:2405.21060] (in-chunk
+quadratic term, chunk states, and the chunk-to-chunk recurrence by a
+segment sum).
 
 ``prec`` rounds the operands of every product: ``exact`` (float32) for
 the reference, ``fp8`` (per-tensor scaled e4m3, their gradients e5m2)
@@ -25,6 +26,10 @@ from typing import Callable, Dict, Iterator
 
 import torch
 import torch.nn.functional as F
+
+
+# the family's layers: blocks(params, cfg, prec) yields block(x, emb) -> x
+Blocks = Callable[..., Iterator[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]]
 
 
 def exact(x: torch.Tensor) -> torch.Tensor:
@@ -103,39 +108,13 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int, prec=exact) -> torch.Tensor:
     return y.reshape(b, c * chunk, h, p)[:, :s]
 
 
-def mamba_block(p: Dict, x: torch.Tensor, cfg: dict, prec=exact) -> torch.Tensor:
-    ssm = cfg["ssm"]
-    eps = cfg["rms_norm_eps"]
-    d_inner = ssm["expand"] * cfg["d_model"]
-    heads = d_inner // ssm["head_dim"]
-    gn = ssm["num_groups"] * ssm["state_dim"]
-    b, s, _ = x.shape
-    u = rmsnorm(x, p["norm"]["scale"], eps)
-    zxbcdt = prec(u) @ prec(p["in_proj"])
-    z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * gn, heads], dim=-1)
-    w = p["conv_w"]                                                     # (W, channels)
-    xbc = F.conv1d(F.pad(xbc.transpose(1, 2), (w.shape[0] - 1, 0)), w.t()[:, None, :],
-                   bias=p["conv_b"], groups=w.shape[1]).transpose(1, 2)
-    xbc = F.silu(xbc)
-    xs, Bm, Cm = torch.split(xbc, [d_inner, gn, gn], dim=-1)
-    dt = F.softplus(dt + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    xh = xs.reshape(b, s, heads, ssm["head_dim"])
-    y = ssd_scan(xh, dt, A, Bm.reshape(b, s, ssm["num_groups"], -1),
-                 Cm.reshape(b, s, ssm["num_groups"], -1), ssm["chunk_size"], prec)
-    y = (y + p["D"][:, None] * xh).reshape(b, s, d_inner) * F.silu(z)
-    y = rmsnorm(y, p["out_norm"]["scale"], eps)
-    return x + prec(y) @ prec(p["out_proj"])
+def layer(tree: Dict, i: int) -> Dict:
+    """Layer ``i`` of a tree stacked on a leading (L, ...) axis."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
-def _index(tree: Dict, i: int) -> Dict:
-    return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
-
-
-def blocks(params: Dict, cfg: dict, prec=exact) -> Iterator[Callable[[torch.Tensor], torch.Tensor]]:
-    """The model's Mamba2 blocks in order, each a function of the residual stream."""
-    for i in range(cfg["num_layers"]):
-        yield lambda x, p=_index(params["layers"], i): mamba_block(p, x, cfg, prec)
+def embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"]["table"][tokens]
 
 
 def head(params: Dict, x: torch.Tensor, cfg: dict, prec=exact) -> torch.Tensor:
@@ -144,14 +123,14 @@ def head(params: Dict, x: torch.Tensor, cfg: dict, prec=exact) -> torch.Tensor:
     return prec(x) @ prec(params["embed"]["table"]).t()
 
 
-def last_logits(params: Dict, tokens: torch.Tensor, cfg: dict,
+def last_logits(params: Dict, tokens: torch.Tensor, cfg: dict, blocks: Blocks,
                 prec=exact) -> torch.Tensor:
     """(b, vocab) float32 logits of the last position of each row of
     ``tokens`` (b, s); ``params`` float32."""
     with torch.no_grad():
-        x = params["embed"]["table"][tokens]
+        x = emb = embed(params, tokens)
         for block in blocks(params, cfg, prec):
-            x = block(x)
+            x = block(x, emb)
         return head(params, x[:, -1:], cfg, prec)[:, 0]
 
 
@@ -175,7 +154,7 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return F.cross_entropy(logits[:, :-1].reshape(-1, v), tokens[:, 1:].reshape(-1))
 
 
-def loss_and_grads(params: Dict, tokens: torch.Tensor, cfg: dict,
+def loss_and_grads(params: Dict, tokens: torch.Tensor, cfg: dict, blocks: Blocks,
                    prec=exact) -> tuple:
     """(loss, {path: gradient}) of the LM loss of one model on ``tokens``
     (b, s), every block recomputed in the backward pass so that a block's
@@ -186,9 +165,9 @@ def loss_and_grads(params: Dict, tokens: torch.Tensor, cfg: dict,
     with torch.enable_grad():
         xs = [t.detach().requires_grad_(True) for t in leaves]
         p = _rebuild(names, xs)
-        x = p["embed"]["table"][tokens]
+        x = emb = embed(p, tokens)
         for block in blocks(p, cfg, prec):
-            x = checkpoint(block, x, use_reentrant=False)
+            x = checkpoint(block, x, emb, use_reentrant=False)
         loss = lm_loss(head(p, x, cfg, prec), tokens)
         grads = torch.autograd.grad(loss, xs)
     return loss.detach(), dict(zip(names, grads))

@@ -55,14 +55,14 @@ def aggregate(replicas: Sequence[Replica], samples: Sequence[float]) -> None:
 
 
 def follow(params: Dict[str, torch.Tensor], batches: Sequence[torch.Tensor], cfg: dict,
-           traffic: dict, prec=model.exact) -> Dict:
+           traffic: dict, blocks: model.Blocks, prec=model.exact) -> Dict:
     """The first ``len(batches)`` local steps of R replicas from
-    ``params`` (path -> float32 tensor); batches[t] is (R, b, s) token
-    ids.  Returns each step's loss per replica, the first gradient's
-    norm per leaf per replica (after the clip, as Adam takes it), the
-    norm of each leaf's change per replica after the last step, and the
-    norm of each leaf's first gradient (the rule that leaves out leaves
-    moved by rounding alone reads it)."""
+    ``params`` (path -> float32 tensor) through the family's ``blocks``;
+    batches[t] is (R, b, s) token ids.  Returns each step's loss per
+    replica, the first gradient's norm per leaf per replica (after the
+    clip, as Adam takes it), the norm of each leaf's change per replica
+    after the last step, and the norm of each leaf's first gradient (the
+    rule that leaves out leaves moved by rounding alone reads it)."""
     tr = cfg["train"]
     r_count = traffic["replicas"]
     replicas = [Replica(params) for _ in range(r_count)]
@@ -71,7 +71,8 @@ def follow(params: Dict[str, torch.Tensor], batches: Sequence[torch.Tensor], cfg
     for t, batch in enumerate(batches):
         step_losses = []
         for r, rep in enumerate(replicas):
-            loss, grads = model.loss_and_grads(model.unflatten(rep.params), batch[r], cfg, prec)
+            loss, grads = model.loss_and_grads(model.unflatten(rep.params), batch[r], cfg, blocks,
+                                              prec)
             grads = clip_global_norm(grads, traffic["grad_clip"])
             if t == 0:
                 grad_norms.append({k: float(torch.linalg.vector_norm(g)) for k, g in grads.items()})

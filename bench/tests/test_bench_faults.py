@@ -46,7 +46,8 @@ def test_the_control_is_not_correct(name):
         control = harness.driver(cell.kind).reference(cell, SEED, rd["fed"], CPU, rm.fp8)
         numbers = check.train_numbers(control, rd["reference"])
     else:
-        control = [rm.last_logits(rd["ref_params"], t, cell.config, rm.fp8) for t in rd["prompts"]]
+        control = [rm.last_logits(rd["ref_params"], t, cell.config, cell.family.reference.blocks,
+                                  rm.fp8) for t in rd["prompts"]]
         numbers = check.prefill_numbers(control, rd["reference"])
     ok, checked = harness.judge(numbers, cell.limits)
     assert ok is False, checked

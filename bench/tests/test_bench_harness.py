@@ -1,7 +1,11 @@
-"""The harness: cells found by name, data files alone to add one, inputs
-as a function of the seed, whole tau-cycles, the JAX check, the result
-line, and the entry point's refusals without a card."""
+"""The harness: cells found by name, data files alone to add one, a new
+family's files alone to add a configuration of it, inputs as a function
+of the seed, whole tau-cycles, the JAX check, the result line, and the
+entry point's refusals without a card."""
+import hashlib
 import json
+import math
+import os
 import shutil
 import subprocess
 import sys
@@ -10,7 +14,7 @@ import time
 import pytest
 import torch
 
-from bench import harness, trace as tracing, weights
+from bench import counts, harness, trace as tracing, weights
 from bench.drivers import fedleo_train, prefill
 from bench.tests.smoke import small_cell
 
@@ -29,7 +33,15 @@ def test_every_cell_resolves_by_name(name):
         assert callable(harness.metric_reader(m["name"]))
         assert m["moves"] in {e["name"] for e in cell.end_to_end}
     assert set(cell.limits["limits"]) and all("limit" in v for v in cell.limits["limits"].values())
-    harness.program_config(cell.config)      # the program runs the file's sizes
+    fam = cell.family                        # found through the file's family
+    assert fam.__name__ == f"bench.families.{cell.config['family']}"
+    acfg = harness.program_config(cell.config)      # the program runs the file's sizes
+    assert acfg == fam.program_config(cell.config) and acfg.num_layers == cell.config["num_layers"]
+    assert fam.param_count(cell.config) == sum(
+        math.prod(shape) for _, shape, _, _ in weights.leaves(cell.config))
+    assert counts.prefill_flops(cell.config, 1, 64) > 0
+    assert callable(fam.reference.blocks) and fam.SMALL and cell.kind in fam.SMALL_LIMITS
+    assert all(isinstance(k, harness.KernelUse) for k in fam.prefill_kernels(cell.config, 2))
 
 
 def test_a_new_cell_mix_and_metric_need_new_files_only(tmp_path):
@@ -61,6 +73,72 @@ def test_a_new_cell_mix_and_metric_need_new_files_only(tmp_path):
     assert cell.traffic["lengths"] == [8192, 16384] and cell.kind == "prefill"
     assert "calls.prefill" in [m["name"] for m in cell.per_layer]
     assert harness.metric_reader("calls.prefill", root=tmp_path)({"window": {"calls": 3}}) == 3.0
+    after = {p: p.read_bytes() for p in before}
+    assert after == before
+
+
+NEW_FAMILY = '''"""Mamba2 stacks under a second family name: the ssm family's functions."""
+from bench.families import ssm
+from bench.families.ssm import (SMALL, SMALL_LIMITS, forward_flops, leaves,  # noqa: F401
+                                param_count, prefill_kernels, reference)
+
+
+def program_config(cfg, **overrides):
+    return ssm.program_config(dict(cfg, family="ssm"), **overrides)
+'''
+
+RUN_NEW_FAMILY = '''
+import json, sys, time
+from pathlib import Path
+import torch
+from bench import harness
+from bench.tests.smoke import small_cell
+assert harness.ROOT == Path.cwd().resolve(), harness.ROOT
+out = {}
+for name in sys.argv[1:]:
+    cell = small_cell(name)
+    assert cell.family.__name__ == "bench.families.ssm2", cell.family
+    run = harness.driver(cell.kind).run(cell, 2 ** 31 + 41, 0.0, False, torch.device("cpu"),
+                                        time.perf_counter())
+    out[name] = [cell.kind, harness.result(cell, run, trace=False)["correct"]]
+print(json.dumps(out))
+'''
+
+
+def test_a_configuration_of_a_new_family_needs_new_files_only(tmp_path):
+    """A configuration of another family joins with new files and entries:
+    its family module, its configuration, its cells' limits.  Both drivers
+    run its cells on the CPU, in a copy of the benchmark, correct; nothing
+    that exists changes."""
+    shutil.copytree(harness.BENCH, tmp_path / "bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in (tmp_path / "bench").rglob("*") if p.is_file()}
+    bench = tmp_path / "bench"
+    (bench / "families" / "ssm2.py").write_text(NEW_FAMILY)
+    cfg = harness.load_json(harness.BENCH / "configs" / "mamba2-780m.json")
+    (bench / "configs" / "mamba2-ssm2.json").write_text(json.dumps(dict(cfg, family="ssm2")))
+    bm = json.loads(json.dumps(BM))
+    bm["configs"].append({"name": "mamba2-ssm2", "source": "https://arxiv.org/abs/2405.21060",
+                          "file": "bench/configs/mamba2-ssm2.json", "reduced": [], "why": "x"})
+    names = []
+    for w in BM["workloads"]:
+        name = w["name"].split(".")[0] + ".mamba2-ssm2"
+        names.append(name)
+        bm["workloads"].append(dict(w, name=name, config="mamba2-ssm2"))
+        (bench / "limits" / f"{name}.json").write_bytes(
+            (bench / "limits" / f"{w['name']}.json").read_bytes())
+        for m in bm["end_to_end"]:
+            if w["name"] in m.get("workloads", []):
+                m["workloads"].append(name)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bm))
+    proc = subprocess.run([sys.executable, "-c", RUN_NEW_FAMILY, *names], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                              [str(tmp_path), str(harness.ROOT / "src")])})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert sorted(kind for kind, _ in out.values()) == ["fedleo_train", "prefill"]
+    assert all(correct is True for _, correct in out.values()), out
     after = {p: p.read_bytes() for p in before}
     assert after == before
 
@@ -127,6 +205,42 @@ def test_weights_follow_the_seed():
     assert not any(torch.equal(la[k], lc[k]) for k in la)
 
 
+def test_weights_are_pinned():
+    """The small configuration's weights for one seed, leaf by leaf, as
+    they were drawn before the layout moved into the families."""
+    cfg = small_cell("prefill.mamba2-780m").config
+    h = hashlib.sha256()
+    for k, v in harness_leaves(weights.make(cfg, 7, torch.float32, "cpu")):
+        h.update(k.encode())
+        h.update(v.contiguous().numpy().tobytes())
+    assert h.hexdigest() == "8926bab2944dc76c430d2f62d6fbaaafc712bd9bd1676b14c2c4ed8796d3adaf"
+
+
+def test_prefill_launch_shapes_are_pinned(monkeypatch):
+    """One profiled cycle of the prefill cell: 48 launches of each kernel
+    a call, K3's shapes as they were before they moved into the family,
+    K5's two uses counted apart."""
+    from repro_torch.kernels import mamba_fused
+
+    cell = harness.resolve("prefill.mamba2-780m")
+    kernels = cell.family.prefill_kernels(cell.config, 2)
+    norm = mamba_fused.gated_rmsnorm
+    monkeypatch.setattr(norm, "launches", 0)
+    monkeypatch.setattr(norm, "norm_launches", 0)
+    before = [k.count() for k in kernels]
+    norm.launches, norm.norm_launches = 5, 2
+    assert [k.count() - n for k, n in zip(kernels, before)][2:] == [3, 2]
+    shapes = prefill.launch_shapes(kernels, [48, 48, 48, 48], 128, [2048])
+    assert shapes == {
+        "ssd": [(128, 2048, 48, 64, 1, 128, 128, 2)] * 48,
+        "causal_conv_silu": [(128, 2048, 3328, 2)] * 48,
+        "gated_rmsnorm": [(128, 2048, 3072, True, 2)] * 48 + [(128, 2048, 1536, False, 2)] * 48,
+    }
+    assert prefill.launch_shapes(kernels, [4, 4, 8, 2], 3, [16, 32])["gated_rmsnorm"] == [
+        (3, 16, 3072, True, 2)] * 4 + [(3, 32, 3072, True, 2)] * 4 + [
+        (3, 16, 1536, False, 2), (3, 32, 1536, False, 2)]
+
+
 def harness_leaves(tree):
     from bench.reference.model import leaf_items
 
@@ -186,6 +300,9 @@ def test_a_session_that_lost_a_launch_is_profiled_again():
     assert got.n == 2 and next(held) == 2
     with pytest.raises(RuntimeError, match="every one of 3 profiler sessions"):
         tracing.whole_profile(lambda: (Held(1), [(("k1",), 2)]), attempts=3)
+    # two uses of one kernel (K5 gated and as the input norm) are held together
+    got = tracing.whole_profile(lambda: (Held(2), [(("k1",), 1), (("k1",), 1)]), attempts=1)
+    assert got.n == 2
 
 
 def test_forbidden_modules_compare_whole_top_level_names():

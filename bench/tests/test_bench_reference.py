@@ -31,12 +31,13 @@ def program(cfg, **kw):
 def test_last_logits_match_program(name, s):
     from repro_torch.train.steps import make_prefill_step
 
-    cfg = small_cell(name).config
+    cell = small_cell(name)
+    cfg = cell.config
     params = weights.make(cfg, 11, torch.float32, "cpu")
     tokens = torch.randint(0, cfg["vocab_size"], (2, s), generator=torch.Generator().manual_seed(1))
     got = make_prefill_step(program(cfg, ssd_impl="pallas", attn_impl="pallas"))(
         params, {"tokens": tokens})
-    want = rm.last_logits(params, tokens, cfg)
+    want = rm.last_logits(params, tokens, cfg, cell.family.reference.blocks)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
@@ -44,12 +45,13 @@ def test_last_logits_match_program(name, s):
 def test_loss_and_grads_match_program(name):
     from repro_torch.train import steps
 
-    cfg = small_cell(name).config
+    cell = small_cell(name)
+    cfg = cell.config
     params = weights.make(cfg, 12, torch.float32, "cpu")
     tokens = torch.randint(0, cfg["vocab_size"], (2, 48), generator=torch.Generator().manual_seed(2))
     (_, ce), grads = steps._value_and_grad(steps._loss_fn(program(cfg)), params,
                                            {"tokens": tokens})
-    loss, ref_grads = rm.loss_and_grads(params, tokens, cfg)
+    loss, ref_grads = rm.loss_and_grads(params, tokens, cfg, cell.family.reference.blocks)
     assert abs(float(ce) - float(loss)) <= 1e-5
     got = dict(rm.leaf_items(grads))
     assert set(got) == set(ref_grads)
@@ -107,7 +109,7 @@ def test_follow_matches_fedleo_local_steps(name):
         if t == 1:
             state = agg(state, torch.ones(tf["replicas"]))
     prog["change_norm"] = fedleo_train.leaf_norms(state.params, p0)
-    ref = rt.follow(dict(rm.leaf_items(p0)), fed, cfg, tf)
+    ref = rt.follow(dict(rm.leaf_items(p0)), fed, cfg, tf, cell.family.reference.blocks)
     for ps, rs in zip(prog["loss"], ref["loss"]):
         assert ps == pytest.approx(rs, abs=1e-5)
     for key in ("grad_norm", "change_norm"):

@@ -126,7 +126,8 @@ def whole_profile(session: Callable[[], Tuple[Profile, List[Tuple[Tuple[str, ...
     of the hand-written kernels that the program's counters saw in it.
 
     ``session()`` profiles one more cycle and returns its ``Profile``
-    with (kernel names, launches counted) pairs.  The profiler drops a
+    with (kernel names, launches counted) pairs; pairs of the same names
+    (two uses of one kernel) are summed.  The profiler drops a
     record now and then in the middle of a long session (one K1 launch
     of a mamba2 training cycle, 6 s and some 10^4 kernels, in one traced
     run of four on the H100 with torch 2.11); a session that lost one is
@@ -134,8 +135,12 @@ def whole_profile(session: Callable[[], Tuple[Profile, List[Tuple[Tuple[str, ...
     session lost one."""
     lost = []
     for _ in range(attempts):
-        profile, made = session()
-        held = [(names, sum(profile.count(n) for n in names), n_made) for names, n_made in made]
+        profile, pairs = session()
+        made: Dict[Tuple[str, ...], int] = defaultdict(int)
+        for names, n_made in pairs:           # uses of one kernel count together
+            made[names] += n_made
+        held = [(names, sum(profile.count(n) for n in names), n_made)
+                for names, n_made in made.items()]
         if all(h == m for _, h, m in held):
             return profile
         lost.append([f"{h} of {m} {'/'.join(names)}" for names, h, m in held if h != m])

@@ -8,7 +8,8 @@ The same seed gives the same weights, so the plain reference is handed
 the same values by drawing them again.
 
 The layout (dict keys, stacked leading axes) is the one the program's
-``Mamba2Model`` takes: ``embed``, ``layers`` (L, ...), ``ln_final``.
+model takes: ``embed``, the family's layers (``bench/families/``),
+``ln_final``.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from bench.counts import ssm_dims
+from bench import harness
 
 Leaf = Tuple[Tuple[str, ...], Tuple[int, ...], str, float]
 
@@ -30,32 +31,11 @@ def seed_for(seed: int, stream: int) -> int:
     return int(ss.generate_state(1, dtype=np.uint64)[0]) & ((1 << 63) - 1)
 
 
-def _mamba_block(cfg: dict, lead: Tuple[int, ...], prefix: Tuple[str, ...]) -> List[Leaf]:
-    d = cfg["d_model"]
-    d_inner, heads, g, n, conv_ch, proj = ssm_dims(cfg)
-    w = cfg["ssm"]["conv_width"]
-    return [
-        (prefix + ("norm", "scale"), lead + (d,), "scale", 0.1),
-        (prefix + ("in_proj",), lead + (d, proj), "normal", 1.0 / math.sqrt(d)),
-        (prefix + ("conv_w",), lead + (w, conv_ch), "normal", 0.2),
-        (prefix + ("conv_b",), lead + (conv_ch,), "normal", 0.02),
-        (prefix + ("A_log",), lead + (heads,), "a_log", 0.0),
-        (prefix + ("D",), lead + (heads,), "scale", 0.1),
-        (prefix + ("dt_bias",), lead + (heads,), "dt_bias", 0.0),
-        (prefix + ("out_norm", "scale"), lead + (d_inner,), "scale", 0.1),
-        (prefix + ("out_proj",), lead + (d_inner, d), "normal", 1.0 / math.sqrt(d_inner)),
-    ]
-
-
 def leaves(cfg: dict) -> List[Leaf]:
     """(path, shape, kind, scale) of every leaf, in draw order."""
     d, v = cfg["d_model"], cfg["vocab_size"]
-    out: List[Leaf] = [(("embed", "table"), (v, d), "normal", 0.02)]
-    if cfg["family"] != "ssm":
-        raise ValueError(f"no weight layout for family {cfg['family']!r}")
-    out += _mamba_block(cfg, (cfg["num_layers"],), ("layers",))
-    out.append((("ln_final", "scale"), (d,), "scale", 0.1))
-    return out
+    return [(("embed", "table"), (v, d), "normal", 0.02), *harness.family(cfg).leaves(cfg),
+            (("ln_final", "scale"), (d,), "scale", 0.1)]
 
 
 def _fill(view: torch.Tensor, kind: str, scale: float) -> None:
