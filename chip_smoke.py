@@ -32,16 +32,19 @@ script exits non-zero without a result line:
                    ``aggregate_flat`` against one launch over the leaves,
                    with wall time per call and peak device memory) on
                    the CNN's tree and mamba2-780m's; flash (dirty) at
-                   gemma-7b's, zamba2-1.2b's, kimi-k2's (head_dim 112)
-                   and seamless-m4t's encoder's (not causal) prefill
-                   shapes, the SSD
-                   scan (dirty) at mamba2-780m's and zamba2-1.2b's and
-                   at mamba2's with one prompt; the Mamba2 block's fused
-                   chains (dirty: the conv with its SiLU, the gated
-                   output norm, the input norm beside ``F.rms_norm``)
-                   at the benchmark's
-                   prefill shape (128 x 2048, mamba2-780m) and at the
-                   serving phases' batch of mamba2-780m and zamba2-1.2b.
+                   gemma-7b's, zamba2-1.2b's, kimi-k2's (head_dim 112),
+                   seamless-m4t's encoder's (not causal) and zamba2-7b's
+                   (head_dim 224, at its scale (224 / 2)^-1/2) prefill
+                   shapes, the SSD scan (dirty) at mamba2-780m's and
+                   zamba2-1.2b's, at mamba2's with one prompt and at
+                   zamba2-7b's (G = 2, N = 64, 112 heads, chunk 256);
+                   the Mamba2 block's fused chains (dirty: the conv with
+                   its SiLU, the gated output norm, the input norm
+                   beside ``F.rms_norm``) at the benchmark's prefill
+                   shape (128 x 2048, mamba2-780m), at the serving
+                   phases' batch of mamba2-780m and zamba2-1.2b, and at
+                   zamba2-7b's cell (16 x 4096, the gated norm over each
+                   of 2 groups).
   5. main        — the FedLEO path: rounds on the quickstart scenario
                    with the full-width CNN and the CUDA aggregation
                    kernel, launch counts reset just before and read just
@@ -228,10 +231,12 @@ SIM_EPOCHS = 8
 # flash attention: (B, S, H, G, D) checked on the card — gemma-7b's heads,
 # phi3-medium's GQA heads, MQA, two ragged S, kimi-k2's heads (D = 112,
 # two 64-wide boxes of which the second is cut at D), internvl2-26b's (GQA
-# 6:1) and llama4-maverick's (GQA 5:1, ragged S) — in five modes
+# 6:1), llama4-maverick's (GQA 5:1, ragged S) and zamba2-7b's (D = 224, four
+# boxes, the last cut at D; ragged S) — in five modes
 FLASH_CHECK_SHAPES = [(1, 2048, 16, 16, 256), (1, 1024, 40, 10, 128),
                       (2, 256, 4, 1, 32), (1, 77, 4, 2, 64), (1, 2000, 16, 16, 256),
-                      (1, 256, 64, 8, 112), (1, 256, 48, 8, 128), (1, 333, 40, 8, 128)]
+                      (1, 256, 64, 8, 112), (1, 256, 48, 8, 128), (1, 333, 40, 8, 128),
+                      (1, 333, 32, 32, 224)]
 FLASH_MODES = {"causal": (True, None, None), "full": (False, None, None),
                "window512": (True, 512, None), "softcap20": (True, None, 20.0),
                "full+window512": (False, 512, None)}
@@ -239,6 +244,9 @@ FLASH_MODES = {"causal": (True, None, None), "full": (False, None, None),
 # long rows average many keys) and of std 4 (a peaked softmax, where the
 # soft-cap bites and a wrong scale or a lost key moves the output a lot)
 FLASH_INPUT_SCALES = {"flat": 0.5, "peaked": 2.0}
+# the scale of the scores at a head dim whose model passes its own
+# (zamba2-7b's shared block: (224 / 2) ** -0.5); D^-1/2 at every other
+FLASH_SCORE_SCALES = {224: (224 / 2) ** -0.5}
 # Both versions compute in float32 from the same input values, so the
 # kernel may differ from the float32 plain version by float32 rounding,
 # FLASH_F32_REL of the output's largest value (measured: below 3e-6 of it),
@@ -251,8 +259,9 @@ SERVE_BATCH, SERVE_SEQ = 4, 2048
 # of the serving paths (B, S, H, G, D): gemma-7b, full and window 512,
 # zamba2-1.2b's shared attention, llama4-maverick's (GQA 5:1), kimi-k2's
 # (D = 112, GQA 8:1), internvl2-26b's over 256 patches and 2048 tokens (GQA
-# 6:1), and seamless-m4t's encoder over its 1024 frames (not causal) and
-# its decoder
+# 6:1), seamless-m4t's encoder over its 1024 frames (not causal) and
+# its decoder, and zamba2-7b's shared attention (D = 224) over its whole 4096-token
+# context at a batch of 2
 FLASH_TIME_CASES = {"causal": ((SERVE_BATCH, SERVE_SEQ, 16, 16, 256), True, None),
                     "window512": ((SERVE_BATCH, SERVE_SEQ, 16, 16, 256), True, 512),
                     "zamba2_causal": ((SERVE_BATCH, SERVE_SEQ, 32, 32, 64), True, None),
@@ -260,36 +269,43 @@ FLASH_TIME_CASES = {"causal": ((SERVE_BATCH, SERVE_SEQ, 16, 16, 256), True, None
                     "kimi_causal": ((SERVE_BATCH, SERVE_SEQ, 64, 8, 112), True, None),
                     "internvl2_causal": ((SERVE_BATCH, SERVE_SEQ + 256, 48, 8, 128), True, None),
                     "seamless_encoder": ((SERVE_BATCH, 1024, 16, 16, 64), False, None),
-                    "seamless_decoder": ((SERVE_BATCH, SERVE_SEQ, 16, 16, 64), True, None)}
+                    "seamless_decoder": ((SERVE_BATCH, SERVE_SEQ, 16, 16, 64), True, None),
+                    "zamba2_7b_causal": ((2, 4096, 32, 32, 224), True, None)}
 # the library's attention kernels by name (SDPA's flash, memory-efficient
 # and cuDNN kernels), which the port must never launch
 LIBRARY_ATTENTION = ("pytorch_flash", "fmha", "attentionkernel", "sdpa", "flash_attn")
 DECODE_PROMPT, DECODE_GEN = 64, 32
 GEMMA_PARAMS = 8_537_680_896
-# the SSD scan: (B, S, H, P, G, N) checked on the card — mamba2-780m's and
-# zamba2-1.2b's heads, a grouped case, two ragged S — at two input scales:
+# the SSD scan: (B, S, H, P, G, N, chunk) checked on the card —
+# mamba2-780m's and zamba2-1.2b's heads, a grouped case, two ragged S,
+# zamba2-7b's heads over its whole context — at two input scales:
 # the tests' (dt in [0.1, 0.6], A in [-0.6, -0.1]) and the model's (dt =
 # softplus of N(0, 1), A = -linspace(1, 16) as init_mamba_block makes it)
-SSD_CHECK_SHAPES = [(1, 2048, 48, 64, 1, 128), (1, 2048, 64, 64, 1, 64),
-                    (1, 1024, 48, 64, 2, 128), (1, 2000, 48, 64, 1, 128),
-                    (1, 77, 64, 64, 1, 64)]
+SSD_CHECK_SHAPES = [(1, 2048, 48, 64, 1, 128, 128), (1, 2048, 64, 64, 1, 64, 128),
+                    (1, 1024, 48, 64, 2, 128, 128), (1, 2000, 48, 64, 1, 128, 128),
+                    (1, 77, 64, 64, 1, 64, 128), (1, 4096, 112, 64, 2, 64, 256)]
 SSD_SCALES = ("tests", "model")
-SSD_CHUNK = 128
-# the SSD scan timed at the prefill shapes (B, S, H, P, G, N): mamba2-780m's
-# (the kernels line's), zamba2-1.2b's, and mamba2-780m's with one prompt
-SSD_TIME_CASES = {"mamba2": (SERVE_BATCH, SERVE_SEQ, 48, 64, 1, 128),
-                  "zamba2": (SERVE_BATCH, SERVE_SEQ, 64, 64, 1, 64),
-                  "mamba2_b1": (1, SERVE_SEQ, 48, 64, 1, 128)}
+# the SSD scan timed at the prefill shapes (B, S, H, P, G, N, chunk):
+# mamba2-780m's (the kernels line's), zamba2-1.2b's, mamba2-780m's with one
+# prompt, and zamba2-7b's over its whole context
+SSD_TIME_CASES = {"mamba2": (SERVE_BATCH, SERVE_SEQ, 48, 64, 1, 128, 128),
+                  "zamba2": (SERVE_BATCH, SERVE_SEQ, 64, 64, 1, 64, 128),
+                  "mamba2_b1": (1, SERVE_SEQ, 48, 64, 1, 128, 128),
+                  "zamba2_7b": (SERVE_BATCH, 4096, 112, 64, 2, 64, 256)}
 # the Mamba2 block's fused chains checked at (B, S): one step, S below the
 # conv's width, ragged runs of the conv's 64 positions, the serving batch;
-# and timed at (B, S, arch): the benchmark's prefill shape (the kernels
-# line's) and the serving phases' batch of each SSM
+# at the widths of FUSED_ARCHS (zamba2-7b's gated norm over each of its 2
+# groups of 3584, its conv over 7424 channels); and timed at (B, S, arch):
+# the benchmark's prefill shape (the kernels line's), the serving phases'
+# batch of each SSM, and zamba2-7b's benchmark cell's whole context
 FUSED_CHECK_SIZES = [(1, 1), (2, 3), (3, 77), (2, 203), (SERVE_BATCH, SERVE_SEQ)]
 FUSED_TIME_CASES = {"mamba2_b128": (128, SERVE_SEQ, "mamba2-780m"),
                     "mamba2": (SERVE_BATCH, SERVE_SEQ, "mamba2-780m"),
-                    "zamba2": (SERVE_BATCH, SERVE_SEQ, "zamba2-1.2b")}
+                    "zamba2": (SERVE_BATCH, SERVE_SEQ, "zamba2-1.2b"),
+                    "zamba2_7b": (16, 4096, "zamba2-7b")}
 FUSED_CHAINS = ("causal_conv_silu", "gated_rmsnorm", "input_rmsnorm")
 SSM_MODELS = {"mamba2-780m": 780_148_992, "zamba2-1.2b": 1_104_937_856}
+FUSED_ARCHS = (*SSM_MODELS, "zamba2-7b")
 # Table II's baselines run 2 rounds (server events, for the asynchronous
 # ones); FedSpace runs to its 10th arrival, where its buffer (a quarter of
 # the 40 clients) first folds into the model, and FedSat-ideal to its
@@ -1349,15 +1365,16 @@ def flash_inputs(torch, gen, dev, b, s, h, g, d, dtype, scale=FLASH_INPUT_SCALES
             for shape in ((b, s, h, d), (b, s, g, d), (b, s, g, d))]
 
 
-def flash_error(torch, q, k, v, causal, window, cap):
+def flash_error(torch, q, k, v, causal, window, cap, scale=None):
     """The kernel against the float32 plain version on the same input
-    values: (max abs error, max abs output, whether every element lies
-    within its limit)."""
+    values, the scores scaled by ``scale`` (D^-1/2 where None): (max abs
+    error, max abs output, whether every element lies within its
+    limit)."""
     from repro_torch.kernels.flash import flash_attention
     from repro_torch.kernels.flash_ref import flash_attention_ref
 
-    got = flash_attention(q, k, v, causal, window, cap)
-    want = flash_attention_ref(q.float(), k.float(), v.float(), causal, window, cap)
+    got = flash_attention(q, k, v, causal, window, cap, scale)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal, window, cap, scale)
     torch.cuda.synchronize()
     check(got.shape == q.shape and got.dtype == q.dtype,
           f"flash output {tuple(got.shape)} {got.dtype}")
@@ -1375,12 +1392,15 @@ def check_flash(torch, dev, gen):
         for dtype in (torch.float32, torch.bfloat16):
             for inputs, in_scale in FLASH_INPUT_SCALES.items():
                 q, k, v = flash_inputs(torch, gen, dev, *shape, dtype, in_scale)
+                score_scale = FLASH_SCORE_SCALES.get(shape[-1])
                 errs, scales, oks = {}, {}, {}
                 for mode, args in FLASH_MODES.items():
-                    errs[mode], scales[mode], oks[mode] = flash_error(torch, q, k, v, *args)
+                    errs[mode], scales[mode], oks[mode] = flash_error(torch, q, k, v, *args,
+                                                                      score_scale)
                 ok = all(oks.values())
                 emit("check", kernel="flash_attention", shape=list(shape), dtype=str(dtype),
-                     inputs=inputs, max_abs_err=errs, max_abs_out=scales,
+                     inputs=inputs, score_scale=score_scale, max_abs_err=errs,
+                     max_abs_out=scales,
                      rel_limit=FLASH_F32_REL,
                      half_ulp=BF16_HALF_ULP if dtype == torch.bfloat16 else None, ok=ok)
                 check(ok, f"flash_attention disagrees with its plain version at {shape} "
@@ -1401,21 +1421,25 @@ def time_flash(torch, dev, gen, flush, smi):
     for case, ((b, s, h, g, d), causal, window) in FLASH_TIME_CASES.items():
         q, k, v = flash_inputs(torch, gen, dev, b, s, h, g, d, torch.bfloat16)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        err, scale, ok = flash_error(torch, q, k, v, causal, window, None)
+        score_scale = FLASH_SCORE_SCALES.get(d)
+        err, scale, ok = flash_error(torch, q, k, v, causal, window, None, score_scale)
         check(ok, f"flash {case} at the prefill shape: {err} (largest output {scale})")
         if window is None:
             lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                            enable_gqa=g != h)
+                                                            enable_gqa=g != h, scale=score_scale)
         else:
             pos = torch.arange(s, device=dev)
             band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
             lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
-        kern = time_ms(torch, lambda: flash_attention(q, k, v, causal, window, None), flush)
-        plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal, window, None), flush)
+        kern = time_ms(torch, lambda: flash_attention(q, k, v, causal, window, None,
+                                                      score_scale), flush)
+        plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal, window, None,
+                                                           score_scale), flush)
         lib = time_ms(torch, lib_fn, flush)
         bound, bound_by, nbytes, flops = flash_bound_ms(b, s, h, g, d, causal, window, 2,
                                                         BF16_FLOPS_PER_S)
-        row = dict(shape=[b, s, h, g, d], dtype="torch.bfloat16", mode=case, bytes=nbytes,
+        row = dict(shape=[b, s, h, g, d], dtype="torch.bfloat16", mode=case,
+                   score_scale=score_scale, bytes=nbytes,
                    flops=flops, bound_ms=bound, bound_by=bound_by, ms=kern, plain_ms=plain,
                    library_ms=lib, max_abs_err=err, achieved_TFLOPs=flops / (kern * 1e-3) / 1e12,
                    roofline_share=bound / kern, nvidia_smi=smi)
@@ -1695,7 +1719,7 @@ def ssd_inputs(torch, gen, dev, b, s, h, p, g, n, dtype, scale):
     return x, dt, A, Bm, Cm
 
 
-def ssd_errors(torch, y, state, x, dt, A, Bm, Cm, init, steps: bool):
+def ssd_errors(torch, y, state, x, dt, A, Bm, Cm, chunk, init, steps: bool):
     """The kernel's y and final state against the float32 chunked scan
     (padded at a ragged S) and, with ``steps``, against S steps of
     ``ssd_decode_step`` (the naive recurrence) on the same input values.
@@ -1705,8 +1729,8 @@ def ssd_errors(torch, y, state, x, dt, A, Bm, Cm, init, steps: bool):
     from repro_torch.kernels.ssd_ref import ssd_padded, ssd_rounding_limit, ssd_steps
 
     args = (x.float(), dt, A, Bm.float(), Cm.float())
-    y_lim, s_lim = ssd_rounding_limit(*args, SSD_CHUNK, init)
-    wants = {"chunked": ssd_padded(*args, SSD_CHUNK, init)}
+    y_lim, s_lim = ssd_rounding_limit(*args, chunk, init)
+    wants = {"chunked": ssd_padded(*args, chunk, init)}
     if y.dtype == torch.bfloat16:
         y_lim = y_lim + BF16_HALF_ULP * wants["chunked"][0].abs()
     if steps:
@@ -1724,19 +1748,20 @@ def ssd_errors(torch, y, state, x, dt, A, Bm, Cm, init, steps: bool):
 def check_ssd(torch, dev, gen):
     from repro_torch.kernels.ssd import ssd_scan
 
-    for b, s, h, p, g, n in SSD_CHECK_SHAPES:
+    for b, s, h, p, g, n, chunk in SSD_CHECK_SHAPES:
         for scale in SSD_SCALES:
             for dtype in (torch.float32, torch.bfloat16):
                 x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, b, s, h, p, g, n, dtype, scale)
                 for init in (None, torch.randn((b, h, p, n), generator=gen, device=dev) * 0.5):
-                    y, state = ssd_scan(x, dt, A, Bm, Cm, SSD_CHUNK, init)
+                    y, state = ssd_scan(x, dt, A, Bm, Cm, chunk, init)
                     torch.cuda.synchronize()
                     check(y.shape == x.shape and y.dtype == dtype and state.shape == (b, h, p, n),
                           f"ssd output {tuple(y.shape)} {y.dtype} {tuple(state.shape)}")
                     check(bool(torch.isfinite(y.float()).all() and torch.isfinite(state).all()),
                           "non-finite ssd output")
-                    errs, scales, ok = ssd_errors(torch, y, state, x, dt, A, Bm, Cm, init, True)
-                    emit("check", kernel="ssd_scan", shape=[b, s, h, p, g, n], chunk=SSD_CHUNK,
+                    errs, scales, ok = ssd_errors(torch, y, state, x, dt, A, Bm, Cm, chunk,
+                                                  init, True)
+                    emit("check", kernel="ssd_scan", shape=[b, s, h, p, g, n], chunk=chunk,
                          dtype=str(dtype), inputs=scale, initial_state=init is not None,
                          max_abs_err=errs, max_abs_want=scales, ok=ok)
                     check(ok, f"ssd_scan disagrees with its plain version at {(b, s, h, p, g, n)} "
@@ -1768,15 +1793,15 @@ def time_ssd(torch, dev, gen, flush, smi):
     from repro_torch.kernels.ssd_ref import ssd_ref
 
     rows = {}
-    for case, (b, s, h, p, g, n) in SSD_TIME_CASES.items():
+    for case, (b, s, h, p, g, n, chunk) in SSD_TIME_CASES.items():
         x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, b, s, h, p, g, n, torch.bfloat16, "model")
-        y, state = ssd_scan(x, dt, A, Bm, Cm, SSD_CHUNK)
-        errs, scales, ok = ssd_errors(torch, y, state, x, dt, A, Bm, Cm, None, False)
+        y, state = ssd_scan(x, dt, A, Bm, Cm, chunk)
+        errs, scales, ok = ssd_errors(torch, y, state, x, dt, A, Bm, Cm, chunk, None, False)
         check(ok, f"ssd_scan {case} at the prefill shape: {errs}")
-        kern = time_ms(torch, lambda: ssd_scan(x, dt, A, Bm, Cm, SSD_CHUNK), flush)
-        plain = time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, SSD_CHUNK), flush)
-        bound, bound_by, nbytes, flops = ssd_bound_ms(b, s, h, p, g, n, SSD_CHUNK, 2)
-        row = dict(shape=[b, s, h, p, g, n], case=case, chunk=SSD_CHUNK, dtype="torch.bfloat16",
+        kern = time_ms(torch, lambda: ssd_scan(x, dt, A, Bm, Cm, chunk), flush)
+        plain = time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, chunk), flush)
+        bound, bound_by, nbytes, flops = ssd_bound_ms(b, s, h, p, g, n, chunk, 2)
+        row = dict(shape=[b, s, h, p, g, n], case=case, chunk=chunk, dtype="torch.bfloat16",
                    inputs="model", bytes=nbytes, flops=flops, bound_ms=bound, bound_by=bound_by,
                    ms=kern, plain_ms=plain, library_ms=None,
                    library_note="no single PyTorch call computes the SSD scan",
@@ -1791,14 +1816,17 @@ def time_ssd(torch, dev, gen, flush, smi):
 
 # --- the Mamba2 block's fused elementwise chains (SSM serving path) -------------------
 def fused_inputs(torch, gen, dev, b, s, arch, dtype):
-    """{chain: (kernel args, byte bound)} at ``arch``'s widths, as the block
-    passes them: x|B|C and z read in place from an in_proj output, the skip
-    from the conv's output, y and the residual contiguous."""
+    """{chain: (kernel args, keyword args, byte bound)} at ``arch``'s widths,
+    as the block passes them: x|B|C and z read in place from an in_proj
+    output, the skip from the conv's output, y and the residual
+    contiguous; the config's eps, and the gated norm over each B/C group."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.extended import rms_norm_eps
     from repro_torch.models.mamba2 import _dims
 
     cfg = get_config(arch)
     d_inner, heads, g, n, c = _dims(cfg)
+    eps = rms_norm_eps(cfg)
     row = 2 * d_inner + 2 * g * n + heads
 
     def draw(*shape, mean=0.0, sd=1.0):
@@ -1808,12 +1836,14 @@ def fused_inputs(torch, gen, dev, b, s, arch, dtype):
     item = torch.empty((), dtype=dtype).element_size()
     return {
         "causal_conv_silu": ((proj[..., d_inner:d_inner + c], draw(cfg.ssm.conv_width, c, sd=0.2),
-                              draw(c, sd=0.1)), 2 * b * s * c * item),
+                              draw(c, sd=0.1)), {}, 2 * b * s * c * item),
         "gated_rmsnorm": ((draw(b, s, d_inner), draw(d_inner, mean=1.0, sd=0.1),
                            conv_out[..., :d_inner], draw(heads, mean=1.0, sd=0.2),
-                           proj[..., :d_inner]), 4 * b * s * d_inner * item),
+                           proj[..., :d_inner]),
+                          {"eps": eps, "group_size": None if g == 1 else d_inner // g},
+                          4 * b * s * d_inner * item),
         "input_rmsnorm": ((draw(b, s, cfg.d_model), draw(cfg.d_model, mean=1.0, sd=0.1)),
-                          2 * b * s * cfg.d_model * item),
+                          {"eps": eps}, 2 * b * s * cfg.d_model * item),
     }
 
 
@@ -1827,17 +1857,17 @@ def fused_fns():
             "input_rmsnorm": (k.gated_rmsnorm, r.gated_rmsnorm_ref)}
 
 
-def fused_errors(torch, kernel, plain, args):
+def fused_errors(torch, kernel, plain, args, kw):
     """The kernel's and the plain chain's max abs error against the chain in
     float32 on the same values, the largest float32 output, and whether
     the kernel lies within half an ulp of each output (in bfloat16) plus
     1e-5 of the largest, and no farther than the plain chain."""
-    got = kernel(*args)
-    want = plain(*(a.float() for a in args))
+    got = kernel(*args, **kw)
+    want = plain(*(a.float() for a in args), **kw)
     err = (got.float() - want).abs()
     scale = float(want.abs().max())
     limit = 1e-5 * scale + (BF16_HALF_ULP * want.abs() if got.dtype == torch.bfloat16 else 0.0)
-    plain_err = float((plain(*args).float() - want).abs().max())
+    plain_err = float((plain(*args, **kw).float() - want).abs().max())
     ok = bool((err <= limit).all()) and (got.dtype != torch.bfloat16
                                          or float(err.max()) <= plain_err)
     return float(err.max()), plain_err, scale, ok
@@ -1845,17 +1875,19 @@ def fused_errors(torch, kernel, plain, args):
 
 def check_fused(torch, dev, gen):
     """Each fused chain against its plain version and the float32 chain, at
-    mamba2-780m's and zamba2-1.2b's widths, in float32 and bfloat16;
-    returns the largest bf16 error by chain."""
+    the widths of FUSED_ARCHS, in float32 and bfloat16; returns the largest
+    bf16 error by chain."""
     worst = dict.fromkeys(FUSED_CHAINS, 0.0)
-    for arch in SSM_MODELS:
+    for arch in FUSED_ARCHS:
         for b, s in FUSED_CHECK_SIZES:
             for dtype in (torch.float32, torch.bfloat16):
-                for chain, (args, _) in fused_inputs(torch, gen, dev, b, s, arch, dtype).items():
+                for chain, (args, kw, _) in fused_inputs(torch, gen, dev, b, s, arch,
+                                                         dtype).items():
                     kernel, plain = fused_fns()[chain]
-                    err, plain_err, scale, ok = fused_errors(torch, kernel, plain, args)
+                    err, plain_err, scale, ok = fused_errors(torch, kernel, plain, args, kw)
                     emit("check", kernel=chain, arch=arch, shape=[b, s], dtype=str(dtype),
-                         max_abs_err=err, plain_max_abs_err=plain_err, max_abs_want=scale, ok=ok)
+                         group_size=kw.get("group_size"), max_abs_err=err,
+                         plain_max_abs_err=plain_err, max_abs_want=scale, ok=ok)
                     check(ok, f"{chain} disagrees with the float32 chain at {arch} {(b, s)} "
                               f"{dtype}: {err} (plain {plain_err})")
                     if dtype == torch.bfloat16:
@@ -1869,8 +1901,8 @@ def fused_library(torch):
     call takes it).  The conv with its SiLU and the gated norm have none."""
     import torch.nn.functional as F
 
-    return {"input_rmsnorm": lambda x, scale: F.rms_norm(x, (x.shape[-1],), scale.to(x.dtype),
-                                                         1e-6)}
+    return {"input_rmsnorm": lambda x, scale, eps: F.rms_norm(x, (x.shape[-1],),
+                                                              scale.to(x.dtype), eps)}
 
 
 def time_fused(torch, dev, gen, flush, smi):
@@ -1885,25 +1917,26 @@ def time_fused(torch, dev, gen, flush, smi):
     rows = {}
     for case, (b, s, arch) in FUSED_TIME_CASES.items():
         rows[case] = {}
-        for chain, (args, nbytes) in fused_inputs(torch, gen, dev, b, s, arch,
-                                                  torch.bfloat16).items():
+        for chain, (args, kw, nbytes) in fused_inputs(torch, gen, dev, b, s, arch,
+                                                      torch.bfloat16).items():
             kernel, plain = fused_fns()[chain]
-            err, plain_err, _, ok = fused_errors(torch, kernel, plain, args)
+            err, plain_err, _, ok = fused_errors(torch, kernel, plain, args, kw)
             check(ok, f"{chain} {case} at the prefill shape: {err} (plain {plain_err})")
-            kern = time_ms(torch, lambda: kernel(*args), flush)
+            kern = time_ms(torch, lambda: kernel(*args, **kw), flush)
             name = KERNELS["causal_conv_silu" if chain == "causal_conv_silu" else "gated_rmsnorm"]
-            alone = kernel_only_ms(torch, lambda: kernel(*args), flush, name)
-            plain_ms = time_ms(torch, lambda: plain(*args), flush)
+            alone = kernel_only_ms(torch, lambda: kernel(*args, **kw), flush, name)
+            plain_ms = time_ms(torch, lambda: plain(*args, **kw), flush)
             lib = {"library_ms": None,
                    "library_note": "no single PyTorch call computes the chain"}
             if chain in library:
                 call = library[chain]
-                lib_err = fused_errors(torch, call, plain, args)[0]
-                lib = {"library_ms": time_ms(torch, lambda: call(*args), flush),
+                lib_err = fused_errors(torch, call, plain, args, kw)[0]
+                lib = {"library_ms": time_ms(torch, lambda: call(*args, **kw), flush),
                        "library_note": "torch.nn.functional.rms_norm",
                        "library_max_abs_err": lib_err}
             bound = 1e3 * nbytes / HBM_BYTES_PER_S
-            row = dict(case=case, arch=arch, shape=[b, s], dtype="torch.bfloat16", bytes=nbytes,
+            row = dict(case=case, arch=arch, shape=[b, s], dtype="torch.bfloat16",
+                       group_size=kw.get("group_size"), bytes=nbytes,
                        bound_ms=bound, bound_by="bytes", ms=kern, kernel_only_ms=alone,
                        plain_ms=plain_ms, **lib,
                        max_abs_err=err, plain_max_abs_err=plain_err, roofline_share=bound / kern,

@@ -2,11 +2,14 @@
 
 The counterpart of ``src/repro/configs/registry.py``.  Importing it
 imports no model module: ``build_model`` imports the one it builds.
-Every family is ported.
+Every family is ported.  ``ARCH_IDS`` are the JAX package's ids; the
+port's own configurations (``_PORT_MODULES``, which the JAX package
+lacks) are found by ``get_config`` and ``get_smoke_config`` too.
 """
 from __future__ import annotations
 
 import importlib
+from types import ModuleType
 from typing import Any, Optional, Union
 
 import torch
@@ -25,19 +28,26 @@ _MODULES = {
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "minitron-8b": "repro_torch.configs.minitron_8b",
 }
-
+# the JAX package's architectures; the port's own configurations follow
 ARCH_IDS = tuple(_MODULES)
+_PORT_MODULES = {
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+}
+
+
+def _module(arch_id: str) -> ModuleType:
+    path = _MODULES.get(arch_id) or _PORT_MODULES.get(arch_id)
+    if path is None:
+        raise ValueError(f"unknown arch {arch_id!r}; have {sorted({**_MODULES, **_PORT_MODULES})}")
+    return importlib.import_module(path)
+
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id not in _MODULES:
-        raise ValueError(f"unknown arch {arch_id!r}; have {sorted(_MODULES)}")
-    return importlib.import_module(_MODULES[arch_id]).CONFIG
+    return _module(arch_id).CONFIG
 
 
 def get_smoke_config(arch_id: str) -> ArchConfig:
-    if arch_id not in _MODULES:
-        raise ValueError(f"unknown arch {arch_id!r}; have {sorted(_MODULES)}")
-    return importlib.import_module(_MODULES[arch_id]).smoke_config()
+    return _module(arch_id).smoke_config()
 
 
 def build_model(
@@ -71,8 +81,10 @@ def build_model(
 
         return Mamba2Model(cfg, dtype=dtype, ssd_impl=ssd_impl, device=device)
     if cfg.family == "hybrid":
-        from repro_torch.models.hybrid import Zamba2Model
+        from repro_torch.configs.extended import hybrid_layer_ids
+        from repro_torch.models.hybrid import Zamba2Model, Zamba2SharedBlocksModel
 
-        return Zamba2Model(cfg, dtype=dtype, attn_impl=attn_impl, ssd_impl=ssd_impl,
-                           sliding_window=sliding_window, device=device)
+        cls = Zamba2SharedBlocksModel if hybrid_layer_ids(cfg) else Zamba2Model
+        return cls(cfg, dtype=dtype, attn_impl=attn_impl, ssd_impl=ssd_impl,
+                   sliding_window=sliding_window, device=device)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -4,7 +4,8 @@
 // (body _flash_kernel).  For q (B, S, H, D) and k, v (B, S, G, D), H % G == 0,
 // query head h reads key/value head h / (H / G) (no replication of K or V):
 //
-//     s[q, k] = (q . k) / sqrt(D), then cap * tanh(s / cap) with a soft cap
+//     s[q, k] = (q . k) * scale (1 / sqrt(D) unless the caller gives one),
+//               then cap * tanh(s / cap) with a soft cap
 //     visible  = (!causal || q >= k) && (!window || q - k < window) && k < S
 //     out[q]   = sum_k softmax_k(s[q, :] over visible k) * v[k]
 //
@@ -52,10 +53,12 @@
 //     TMA writes the 128-byte swizzle that wgmma reads (and that keeps the
 //     epilogue's shared-memory traffic conflict-free), and zero-fills rows
 //     past S and the columns past D where D is not a multiple of 64 (D = 32
-//     runs in one 64-wide box, D = 112 in two: the tiles are 128 wide).
+//     runs in one 64-wide box, D = 112 in two, D = 224 in four: the tiles
+//     are 128 and 256 wide).
 //   * Rows start on 16-byte boundaries (strides a multiple of 8 elements), as
-//     TMA requires.  At D = 256 the block holds Q 64 KB + 2 stages of K and V
-//     128 KB of the 227 KB; at D <= 64 two blocks share an SM.
+//     TMA requires.  At D = 256 (and at D = 224, on the same 256-wide tiles)
+//     the block holds Q 64 KB + 2 stages of K and V 128 KB of the 227 KB; at
+//     D <= 64 two blocks share an SM.
 //
 // float32 (agreement checks): flash_fwd_kernel, the arithmetic on the CUDA
 //   cores in float32 FMAs, since no tensor-core format keeps float32 to 1e-5
@@ -584,11 +587,13 @@ template <typename T>
 int run(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
         int G, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
         long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-        int causal, int window, float soft_cap, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0)
+        int causal, int window, float soft_cap, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || !(scale >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
+  // scale 0: the default, 1 / sqrt(D)
   const Params p{B, S, H, G, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                 causal, window, soft_cap, 1.0f / sqrtf(static_cast<float>(D))};
+                 causal, window, soft_cap,
+                 scale > 0.f ? scale : 1.0f / sqrtf(static_cast<float>(D))};
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -600,6 +605,7 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int S, int 
     case 64: err = launch<64>(qt, kt, vt, ot, p, st); break;
     case 112: err = launch<112>(qt, kt, vt, ot, p, st); break;
     case 128: err = launch<128>(qt, kt, vt, ot, p, st); break;
+    case 224: err = launch<224>(qt, kt, vt, ot, p, st); break;
     case 256: err = launch<256>(qt, kt, vt, ot, p, st); break;
     default: err = cudaErrorInvalidValue;
   }
@@ -614,10 +620,10 @@ extern "C" {
   const void *q, const void *k, const void *v, void *o, int B, int S, int H, int G,  \
       int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,         \
       long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, \
-      int causal, int window, float soft_cap, void *stream
+      int causal, int window, float soft_cap, float scale, void *stream
 #define FLASH_PASS                                                                   \
   q, k, v, o, B, S, H, G, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,   \
-      causal, window, soft_cap, stream
+      causal, window, soft_cap, scale, stream
 
 // float32 on the CUDA cores (flash_fwd_kernel)
 int flash_attention_f32(FLASH_ARGS) { return run<float>(FLASH_PASS); }

@@ -40,9 +40,12 @@
 //
 //     t = (y + D[c / (E / H)] x) * silu(z),    out = t rsqrt(mean(t^2) + eps) scale
 //
-// the skip and the gate left out where their pointers are null: with neither,
-// it is the block's input RMSNorm.  One block of up to 128 threads takes one
-// row, each thread up to kMaxVecs 16-byte vectors of it, issues every load
+// the mean taken over each of G groups of E / G columns on its own (the
+// published Mamba2 norm, RMSNormGated with group_size = d_inner / ngroups; G
+// = 1, the whole row, for one group and for the input norm), the skip and the
+// gate left out where their pointers are null: with neither, it is the
+// block's input RMSNorm.  One block of up to 128 threads takes one group of
+// one row, each thread up to kMaxVecs 16-byte vectors of it, issues every load
 // of the row before any arithmetic, keeps t in float32 registers, and sums t^2
 // with warp shuffles and one shared-memory step.  Bound at mamba2-780m's
 // prefill shape: gated, N E (2 + 2 + 2 + 2) bytes at E = 3,072, 6.44 GB, 1.92
@@ -203,15 +206,17 @@ __global__ void __launch_bounds__(kNormThreads)
 gated_rmsnorm_kernel(const T* __restrict__ y, const T* __restrict__ x,
                      const T* __restrict__ D, const T* __restrict__ z,
                      const float* __restrict__ scale, T* __restrict__ out, int S,
-                     int E, int hcols, float eps, long long y_sb, long long y_ss,
+                     int G, int E, int hcols, float eps, long long y_sb, long long y_ss,
                      long long x_sb, long long x_ss, long long z_sb, long long z_ss) {
   using P = Pack<T>;
   constexpr int kN = P::kN;
+  // block: group g of row (b, s); E is the group's width, col0 its first column
   const long long row = blockIdx.x;
-  const long long b = row / S, s = row % S;
-  const T* yr = y + b * y_sb + s * y_ss;
-  const T* xr = x != nullptr ? x + b * x_sb + s * x_ss : nullptr;
-  const T* zr = z != nullptr ? z + b * z_sb + s * z_ss : nullptr;
+  const int col0 = static_cast<int>(row % G) * E;
+  const long long b = row / G / S, s = row / G % S;
+  const T* yr = y + b * y_sb + s * y_ss + col0;
+  const T* xr = x != nullptr ? x + b * x_sb + s * x_ss + col0 : nullptr;
+  const T* zr = z != nullptr ? z + b * z_sb + s * z_ss + col0 : nullptr;
 
   uint4 ry[V], rx[V], rz[V];
 #pragma unroll
@@ -234,7 +239,7 @@ gated_rmsnorm_kernel(const T* __restrict__ y, const T* __restrict__ x,
       if (xr != nullptr) {
         float v[kN];
         P::unpack(rx[k], v);
-        const float d = P::scalar(D[c0 / hcols]);   // a vector lies in one head
+        const float d = P::scalar(D[(col0 + c0) / hcols]);   // a vector lies in one head
 #pragma unroll
         for (int c = 0; c < kN; ++c) t[k][c] = fmaf(d, v[c], t[k][c]);
       }
@@ -266,7 +271,7 @@ gated_rmsnorm_kernel(const T* __restrict__ y, const T* __restrict__ x,
       float sc[kN];
 #pragma unroll
       for (int q = 0; q < kN / 4; ++q) {
-        const float4 f = __ldg(reinterpret_cast<const float4*>(scale + c0) + q);
+        const float4 f = __ldg(reinterpret_cast<const float4*>(scale + col0 + c0) + q);
         sc[4 * q] = f.x;
         sc[4 * q + 1] = f.y;
         sc[4 * q + 2] = f.z;
@@ -281,27 +286,28 @@ gated_rmsnorm_kernel(const T* __restrict__ y, const T* __restrict__ x,
 
 template <typename T, int V>
 cudaError_t launch_norm(const T* y, const T* x, const T* D, const T* z, const float* scale,
-                        T* out, long long rows, int S, int E, int hcols,
+                        T* out, long long rows, int S, int G, int E, int hcols,
                         float eps, long long y_sb, long long y_ss, long long x_sb,
                         long long x_ss, long long z_sb, long long z_ss, int threads,
                         cudaStream_t stream) {
   gated_rmsnorm_kernel<T, V><<<static_cast<unsigned>(rows), threads, 0, stream>>>(
-      y, x, D, z, scale, out, S, E, hcols, eps, y_sb, y_ss, x_sb, x_ss, z_sb, z_ss);
+      y, x, D, z, scale, out, S, G, E, hcols, eps, y_sb, y_ss, x_sb, x_ss, z_sb, z_ss);
   return cudaGetLastError();
 }
 
 template <typename T>
 int run_norm(const void* y, const void* x, const void* D, const void* z, const void* scale,
-             void* out, int B, int S, int E, int H, float eps, long long y_sb,
+             void* out, int B, int S, int E, int H, int G, float eps, long long y_sb,
              long long y_ss, long long x_sb, long long x_ss, long long z_sb, long long z_ss,
              void* stream) {
   constexpr int kN = Pack<T>::kN;
-  const long long rows = static_cast<long long>(B) * S;
-  if (B <= 0 || S <= 0 || E <= 0 || E % kN != 0 || rows > 0x7fffffffLL ||
-      (x == nullptr) != (D == nullptr) || (D != nullptr && (H <= 0 || E % H != 0 ||
-                                                            (E / H) % kN != 0)))
+  // one block a group of a row
+  const long long rows = static_cast<long long>(B) * S * G;
+  if (B <= 0 || S <= 0 || E <= 0 || G <= 0 || E % G != 0 || (E / G) % kN != 0 ||
+      rows > 0x7fffffffLL || (x == nullptr) != (D == nullptr) ||
+      (D != nullptr && (H <= 0 || E % H != 0 || (E / H) % kN != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nvec = E / kN;
+  const int nvec = E / G / kN;
   const int vecs = (nvec + kNormThreads - 1) / kNormThreads;      // per thread
   const int threads = ((nvec + vecs - 1) / vecs + 31) / 32 * 32;
   const int hcols = D != nullptr ? E / H : E;
@@ -314,9 +320,9 @@ int run_norm(const void* y, const void* x, const void* D, const void* z, const v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NORM_CASE(V)                                                                      \
   case V:                                                                                 \
-    return static_cast<int>(launch_norm<T, V>(yt, xt, dt, zt, sct, ot, rows, S,              \
-                                              E, hcols, eps, y_sb, y_ss, x_sb, x_ss, z_sb,   \
-                                              z_ss, threads, st));
+    return static_cast<int>(launch_norm<T, V>(yt, xt, dt, zt, sct, ot, rows, S, G,           \
+                                              E / G, hcols, eps, y_sb, y_ss, x_sb, x_ss,     \
+                                              z_sb, z_ss, threads, st));
   switch (vecs) {
     NORM_CASE(1) NORM_CASE(2) NORM_CASE(3) NORM_CASE(4)
     NORM_CASE(5) NORM_CASE(6) NORM_CASE(7) NORM_CASE(kMaxVecs)
@@ -333,11 +339,11 @@ int run_norm(const void* y, const void* x, const void* D, const void* z, const v
 #define CONV_PASS x, w, bias, out, B, S, C, W, sb, ss, stream
 #define NORM_ARGS                                                                         \
   const void *y, const void *x, const void *D, const void *z, const void *scale,          \
-      void *out, int B, int S, int E, int H, float eps, long long y_sb,                   \
+      void *out, int B, int S, int E, int H, int G, float eps, long long y_sb,            \
       long long y_ss, long long x_sb, long long x_ss, long long z_sb, long long z_ss,     \
       void *stream
 #define NORM_PASS                                                                         \
-  y, x, D, z, scale, out, B, S, E, H, eps, y_sb, y_ss, x_sb, x_ss, z_sb, z_ss,            \
+  y, x, D, z, scale, out, B, S, E, H, G, eps, y_sb, y_ss, x_sb, x_ss, z_sb, z_ss,         \
       stream
 
 extern "C" {

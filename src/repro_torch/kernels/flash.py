@@ -1,10 +1,11 @@
 """CUDA kernel: grouped-query flash attention, forward.
 
-``flash_attention(q, k, v, causal, window, logit_soft_cap)`` computes
-softmax attention for q ``(B, S, H, D)`` over k, v ``(B, S, G, D)``,
-query head ``h`` reading key/value head ``h // (H // G)``, with an
-optional causal mask, sliding window (``q - k < window``) and tanh
-logit soft-cap; scores, running max, denominator and accumulator are
+``flash_attention(q, k, v, causal, window, logit_soft_cap, scale)``
+computes softmax attention for q ``(B, S, H, D)`` over k, v
+``(B, S, G, D)``, query head ``h`` reading key/value head
+``h // (H // G)``, the scores scaled by ``scale`` (D^-1/2 where None),
+with an optional causal mask, sliding window (``q - k < window``) and
+tanh logit soft-cap; scores, running max, denominator and accumulator are
 float32 and the output is ``q.dtype``.  It launches ``csrc/flash.cu``
 (the port of the Pallas kernel
 ``src/repro/kernels/flash.py::flash_attention``) on the current CUDA
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 112, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 224, 256)
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 # the device kernel each dtype launches, as a profiler names it
@@ -47,7 +48,8 @@ def _kernel_fn(dtype: torch.dtype):
         fn = getattr(lib, _SYMBOLS[dtype])
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -56,7 +58,8 @@ def _kernel_fn(dtype: torch.dtype):
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: Optional[int], logit_soft_cap: Optional[float]) -> None:
+           window: Optional[int], logit_soft_cap: Optional[float],
+           scale: Optional[float]) -> None:
     if q.device.type != "cuda":
         raise ValueError(
             f"flash_attention runs on CUDA tensors, got q on {q.device}; "
@@ -95,6 +98,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
     if logit_soft_cap is not None and not logit_soft_cap > 0:
         raise ValueError(f"logit_soft_cap must be > 0, got {logit_soft_cap}")
+    if scale is not None and not 0 < scale < float("inf"):
+        raise ValueError(f"scale must be finite and > 0, got {scale}")
 
 
 def flash_attention(
@@ -104,10 +109,11 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     logit_soft_cap: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention of CUDA tensors q (B, S, H, D) over k, v (B, S, G, D);
     returns a contiguous (B, S, H, D) tensor in ``q.dtype``."""
-    _check(q, k, v, window, logit_soft_cap)
+    _check(q, k, v, window, logit_soft_cap, scale)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     fn = _kernel_fn(q.dtype)
@@ -119,7 +125,8 @@ def flash_attention(
                  b, s, h, k.shape[2], d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  int(bool(causal)), win,
-                 0.0 if logit_soft_cap is None else float(logit_soft_cap), stream)
+                 0.0 if logit_soft_cap is None else float(logit_soft_cap),
+                 0.0 if scale is None else float(scale), stream)
     if err != 0:
         msg = build.load("flash").flash_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")

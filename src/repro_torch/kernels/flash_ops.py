@@ -29,6 +29,7 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     logit_soft_cap: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError(
@@ -36,7 +37,7 @@ def flash_attention(
             "'chunked', or call it under torch.no_grad()"
         )
     if q.device.type == "cuda":
-        return _flash_kernel(q, k, v, causal, window, logit_soft_cap)
+        return _flash_kernel(q, k, v, causal, window, logit_soft_cap, scale)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal, window, logit_soft_cap)
+        return flash_attention_ref(q, k, v, causal, window, logit_soft_cap, scale)
     raise ValueError(f"no flash-attention path for device {q.device}")

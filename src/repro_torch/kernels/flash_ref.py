@@ -19,14 +19,16 @@ def flash_attention_ref(
     causal: bool = True,
     window: Optional[int] = None,
     logit_soft_cap: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """GQA softmax attention in float32 (masked logits -inf), returned
-    in ``q.dtype``."""
+    in ``q.dtype``; the scores scaled by ``scale``, D^-1/2 where None."""
     b, s, h, d = q.shape
     g = k.shape[2]
     rep = h // g
     qf = q.float().reshape(b, s, g, rep, d)
-    logits = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float()) / math.sqrt(d)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float())
+    logits = logits / math.sqrt(d) if scale is None else logits * scale
     if logit_soft_cap is not None:
         logits = logit_soft_cap * torch.tanh(logits / logit_soft_cap)
     pos = torch.arange(s, device=q.device)

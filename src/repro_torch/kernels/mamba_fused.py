@@ -2,10 +2,12 @@
 
 ``causal_conv_silu(xbc, w, b)`` (K4) is the depthwise causal convolution
 of width 4 over the x|B|C channels ``(B, S, C)``, from a zero history,
-plus the bias, through SiLU; ``gated_rmsnorm(y, scale, x, D, z, eps)``
-(K5) is ``rmsnorm((y + D[head] * x) * silu(z)) * scale`` over the last
-axis of ``(B, S, E)``, with the skip (x and D) and the gate (z) left out
-where they are None: with neither, the block's input RMSNorm.  Each
+plus the bias, through SiLU; ``gated_rmsnorm(y, scale, x, D, z, eps,
+group_size)`` (K5) is ``rmsnorm((y + D[head] * x) * silu(z)) * scale``
+over each group of ``group_size`` columns of the last axis of
+``(B, S, E)`` (the whole row where None), with the skip (x and D) and
+the gate (z) left out where they are None: with neither, the block's
+input RMSNorm.  Each
 launches one kernel of ``csrc/mamba_fused.cu`` on the current CUDA
 stream and returns a new contiguous tensor in the input's type; the
 library is built with ``nvcc`` at first use (``kernels/build.py``).
@@ -46,7 +48,7 @@ _fns: dict = {}
 
 _CONV_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [
     ctypes.c_void_p]
-_NORM_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float]
+_NORM_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
                   + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
 
 
@@ -140,8 +142,9 @@ def causal_conv_silu(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> tor
 
 def gated_rmsnorm(y: torch.Tensor, scale: torch.Tensor, x: Optional[torch.Tensor] = None,
                   D: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None,
-                  eps: float = 1e-6) -> torch.Tensor:
-    """rmsnorm((y + D[head] * x) * silu(z)) * scale over the last axis of
+                  eps: float = 1e-6, group_size: Optional[int] = None) -> torch.Tensor:
+    """rmsnorm((y + D[head] * x) * silu(z)) * scale over each group of
+    ``group_size`` columns (the whole row where None) of the last axis of
     ``y`` (B, S, E), head h of D (H,) covering columns h E/H .. (h+1) E/H
     of x; the skip (x with D) and the gate (z) are left out where None.
     Returns a contiguous (B, S, E) tensor in ``y.dtype``."""
@@ -151,9 +154,14 @@ def gated_rmsnorm(y: torch.Tensor, scale: torch.Tensor, x: Optional[torch.Tensor
     _check_rows("y", y, y.shape, dtype, dev)
     if (x is None) != (D is None):
         raise ValueError("the skip takes both x and D, or neither")
-    if e // (_ALIGN // y.element_size()) > MAX_ROW_VECTORS:
-        raise ValueError(f"gated_rmsnorm takes rows of up to {MAX_ROW_VECTORS} 16-byte "
-                         f"vectors, got E = {e}")
+    width = e if group_size is None else group_size
+    vec = _ALIGN // y.element_size()
+    if width < 1 or e % width or width % vec:
+        raise ValueError(f"group_size {group_size} must divide E = {e} into whole 16-byte "
+                         "vectors")
+    if width // vec > MAX_ROW_VECTORS:
+        raise ValueError(f"gated_rmsnorm takes groups of up to {MAX_ROW_VECTORS} 16-byte "
+                         f"vectors, got {width}")
     heads = 0
     if x is not None:
         _check_rows("x", x, y.shape, dtype, dev)
@@ -175,7 +183,7 @@ def gated_rmsnorm(y: torch.Tensor, scale: torch.Tensor, x: Optional[torch.Tensor
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(y.data_ptr(), xp, None if D is None else D.data_ptr(), zp, scale.data_ptr(),
-                 out.data_ptr(), bsz, s, e, heads, float(eps),
+                 out.data_ptr(), bsz, s, e, heads, e // width, float(eps),
                  y.stride(0), y.stride(1), x_sb, x_ss, z_sb, z_ss, stream)
     _raise_on(err, "gated_rmsnorm")
     gated_rmsnorm.launches += 1

@@ -44,10 +44,11 @@ def causal_conv_silu(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> tor
 
 def gated_rmsnorm(y: torch.Tensor, scale: torch.Tensor, x: Optional[torch.Tensor] = None,
                   D: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None,
-                  eps: float = 1e-6) -> torch.Tensor:
-    """rmsnorm((y + D[head] * x) * silu(z)) * scale over the last axis of
-    ``y`` (B, S, E); without x, D and z the plain RMSNorm.  ``eps`` as
+                  eps: float = 1e-6, group_size: Optional[int] = None) -> torch.Tensor:
+    """rmsnorm((y + D[head] * x) * silu(z)) * scale over each group of
+    ``group_size`` columns (the whole row where None) of the last axis
+    of ``y`` (B, S, E); without x, D and z the plain RMSNorm.  ``eps`` as
     ``nn.apply_rmsnorm``'s."""
     if _route("gated_rmsnorm", y, scale, x, D, z) == "cuda":
-        return mamba_fused.gated_rmsnorm(y, scale, x, D, z, eps)
-    return gated_rmsnorm_ref(y, scale, x, D, z, eps)
+        return mamba_fused.gated_rmsnorm(y, scale, x, D, z, eps, group_size)
+    return gated_rmsnorm_ref(y, scale, x, D, z, eps, group_size)

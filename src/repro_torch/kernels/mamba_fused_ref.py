@@ -25,8 +25,9 @@ def causal_conv_silu_ref(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) ->
 
 def gated_rmsnorm_ref(y: torch.Tensor, scale: torch.Tensor, x: Optional[torch.Tensor] = None,
                       D: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None,
-                      eps: float = 1e-6) -> torch.Tensor:
-    """rmsnorm((y + D[head] * x) * silu(z)) * scale over the last axis of
+                      eps: float = 1e-6, group_size: Optional[int] = None) -> torch.Tensor:
+    """rmsnorm((y + D[head] * x) * silu(z)) * scale over each group of
+    ``group_size`` columns (the whole row where None) of the last axis of
     ``y`` (B, S, E); the skip and the gate left out where None."""
     if x is not None:
         bsz, s, e = y.shape
@@ -36,4 +37,8 @@ def gated_rmsnorm_ref(y: torch.Tensor, scale: torch.Tensor, x: Optional[torch.Te
         y = y.reshape(bsz, s, e)
     if z is not None:
         y = y * F.silu(z)
+    if group_size is not None and group_size != y.shape[-1]:
+        groups = y.reshape(*y.shape[:-1], -1, group_size)
+        out = nn.apply_rmsnorm({"scale": scale.reshape(-1, group_size)}, groups, eps)
+        return out.reshape(y.shape)
     return nn.apply_rmsnorm({"scale": scale}, y, eps)

@@ -8,9 +8,12 @@ returns a param dict, ``apply_*`` is a plain function.  Two modes:
   * decode: single-token forward against a KV cache.
 
 Grouped-query attention (GQA) keeps an explicit group axis in the
-einsums (no head replication); RoPE rotates interleaved channel pairs;
-the FFN is SwiGLU (``silu``) or GeGLU (``gelu``, tanh approximation as
-``jax.nn.gelu``).  ``attn_impl="pallas"`` sends prefill attention to
+einsums (no head replication); RoPE rotates interleaved channel pairs
+(or, with ``AttentionConfig.rope_half``, the two halves of each head, as
+Hugging Face's ``rotate_half``); the scores are scaled by head_dim^-1/2
+unless ``AttentionConfig.scale`` says otherwise; the FFN is SwiGLU
+(``silu``) or GeGLU (``gelu``, tanh approximation as ``jax.nn.gelu``;
+``gelu_exact``, the erf form).  ``attn_impl="pallas"`` sends prefill attention to
 the hand-written CUDA kernel through ``kernels.flash_ops``.
 
 Decode writes the new keys and values into the cache's buffers in
@@ -38,15 +41,20 @@ def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0):
             torch.from_numpy(np.sin(freqs)).float())
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
-    """Rotate interleaved pairs of channels (0::2 with 1::2).
-    x: (B, S, H, hd); positions: (B, S)."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+               half: bool = False):
+    """Rotate interleaved pairs of channels (0::2 with 1::2), or with
+    ``half`` channel i with i + hd/2.  x: (B, S, H, hd); positions: (B, S)."""
     hd = x.shape[-1]
     inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                         device=x.device) / hd))
     angles = positions[..., None].float() * inv          # (B, S, hd/2)
     cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    if half:
+        x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+        return (x * torch.cat([cos, cos], dim=-1)
+                + torch.cat([-x2, x1], dim=-1) * torch.cat([sin, sin], dim=-1))
     x1, x2 = x[..., 0::2], x[..., 1::2]
     out1 = x1 * cos - x2 * sin
     out2 = x2 * cos + x1 * sin
@@ -66,6 +74,8 @@ class AttentionConfig:
     sliding_window: Optional[int] = None   # None = full attention
     use_rope: bool = True
     logit_soft_cap: Optional[float] = None
+    rope_half: bool = False                # rotate halves, not interleaved pairs
+    scale: Optional[float] = None          # None = head_dim ** -0.5
 
     @property
     def q_per_kv(self) -> int:
@@ -128,6 +138,7 @@ def attention_scores(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask: torch.Tensor, q_per_kv: int,
     logit_soft_cap: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Grouped-query SDPA.  q: (B,Sq,H,hd), k/v: (B,Sk,G,hd), H=G*q_per_kv.
 
@@ -138,7 +149,7 @@ def attention_scores(
     b, sq, h, hd = q.shape
     g = k.shape[2]
     q = q.reshape(b, sq, g, q_per_kv, hd)
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     logits = torch.einsum("bqgph,bkgh->bgpqk", q, k) * scale
     if logit_soft_cap is not None:
         logits = logit_soft_cap * torch.tanh(logits / logit_soft_cap)
@@ -158,6 +169,7 @@ def chunked_attention(
     logit_soft_cap: Optional[float] = None,
     q_chunk: int = 512,
     k_chunk: int = 512,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash-style attention in plain PyTorch: online softmax over KV
     chunks, never materialising the (S, S) score matrix.  A forward
@@ -169,7 +181,7 @@ def chunked_attention(
     q_chunk = math.gcd(s, min(q_chunk, s))
     k_chunk = math.gcd(s, min(k_chunk, s))
     nq, nk = s // q_chunk, s // k_chunk
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
 
     # (B, G, P, S, hd) layouts
     qh = q.reshape(b, s, g, q_per_kv, hd).permute(0, 2, 3, 1, 4).float()
@@ -238,8 +250,12 @@ def apply_attention(
     k = torch.einsum("bsd,dgk->bsgk", x, params["wk"].to(x.dtype))
     v = torch.einsum("bsd,dgk->bsgk", x, params["wv"].to(x.dtype))
     if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        rope = {"half": True} if cfg.rope_half else {}
+        q = apply_rope(q, positions, cfg.rope_theta, **rope)
+        k = apply_rope(k, positions, cfg.rope_theta, **rope)
+    # a scale other than head_dim ** -0.5 is passed on; the default is not,
+    # so the dry run's stand-ins for these functions take the same call
+    scaled = {} if cfg.scale is None else {"scale": cfg.scale}
 
     new_cache = None
     if cache is None:
@@ -248,19 +264,19 @@ def apply_attention(
 
             out = flash_ops.flash_attention(
                 q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-                logit_soft_cap=cfg.logit_soft_cap,
+                logit_soft_cap=cfg.logit_soft_cap, **scaled,
             )
         elif attn_impl == "chunked":
             out = chunked_attention(
                 q, k, v, cfg.q_per_kv, causal=cfg.causal,
                 window=cfg.sliding_window,
-                logit_soft_cap=cfg.logit_soft_cap,
+                logit_soft_cap=cfg.logit_soft_cap, **scaled,
             )
         else:
             mask = _attn_mask(positions, positions, cfg.causal,
                               cfg.sliding_window)
             out = attention_scores(q, k, v, mask, cfg.q_per_kv,
-                                   cfg.logit_soft_cap)
+                                   cfg.logit_soft_cap, **scaled)
     else:
         # decode: write k/v at cache.index (ring buffer for windowed attn),
         # clamped as the reference's dynamic_update_slice clamps its start
@@ -290,7 +306,7 @@ def apply_attention(
         mask &= valid[None, None, :]
         out = attention_scores(
             q, cache.k.to(q.dtype), cache.v.to(q.dtype), mask,
-            cfg.q_per_kv, cfg.logit_soft_cap,
+            cfg.q_per_kv, cfg.logit_soft_cap, **scaled,
         )
 
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
@@ -346,9 +362,19 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def apply_glu_ffn(params: Dict, x: torch.Tensor, activation: str = "silu"):
-    """SwiGLU ('silu') or GeGLU ('gelu') feed-forward."""
-    act = F.silu if activation == "silu" else _gelu_tanh
-    gate = act(x @ params["w_gate"].to(x.dtype))
+GLU_ACTIVATIONS = {"silu": F.silu, "gelu": _gelu_tanh, "gelu_exact": F.gelu}
+
+
+def apply_glu_ffn(params: Dict, x: torch.Tensor, activation: str = "silu",
+                  adapter: Optional[Dict] = None):
+    """SwiGLU ('silu') or GeGLU ('gelu' tanh, 'gelu_exact' erf) feed-forward.
+    With ``adapter``, the gate and up products take a low-rank delta:
+    [gate | up] = x [W_gate | W_up] + (x A_down) A_up."""
+    act = GLU_ACTIVATIONS.get(activation, _gelu_tanh)
+    gate = x @ params["w_gate"].to(x.dtype)
     up = x @ params["w_up"].to(x.dtype)
-    return (gate * up) @ params["w_down"].to(x.dtype)
+    if adapter is not None:
+        delta = (x @ adapter["down"].to(x.dtype)) @ adapter["up"].to(x.dtype)
+        gate = gate + delta[..., :gate.shape[-1]]
+        up = up + delta[..., gate.shape[-1]:]
+    return (act(gate) * up) @ params["w_down"].to(x.dtype)

@@ -21,8 +21,13 @@ The recurrent (decode) path keeps O(1) state per layer: conv state
 ``params["layers"]`` has a leading ``num_layers`` axis, so reference
 weights carry across with ``convert.params_from_numpy`` unchanged; with
 ``cfg.remat`` and grad mode on, each block is recomputed in the backward
-pass.  It runs on CUDA unless the caller asks for the CPU (``device="cpu"``);
-``init(rng)`` draws on the generator's device.  ``decode_step`` writes
+pass.  The block's norms take the configuration's ``rms_norm_eps``
+(``configs/extended.py``; 1e-6, the JAX package's, by default), and the
+gated output norm normalises each of the ``num_groups`` B/C groups'
+d_inner / G columns on its own, as the published Mamba2's
+``RMSNormGated`` does (the JAX package's configurations all have one
+group, the whole row).  It runs on CUDA unless the caller asks for the
+CPU (``device="cpu"``); ``init(rng)`` draws on the generator's device.  ``decode_step`` writes
 the SSM states into the cache's buffer in place.
 """
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.extended import rms_norm_eps
 from repro_torch.device import resolve_device
 from repro_torch.models import nn
 from repro_torch.profiling import span
@@ -205,8 +211,12 @@ def apply_mamba_block(
     cfg: ArchConfig,
     cache: Optional[MambaCache] = None,
     ssd_impl: str = "xla",
+    addend: Optional[torch.Tensor] = None,    # (B, S, D)
 ) -> Tuple[torch.Tensor, Optional[MambaCache]]:
-    """One pre-norm Mamba2 block.  Prefill (cache=None): the SSD scan
+    """One pre-norm Mamba2 block, x + mixer(norm(x)); with ``addend`` (the
+    shared block's output in a published Zamba2 hybrid layer) x +
+    mixer(norm(x + addend)): the addend enters the norm, not the
+    residual.  Prefill (cache=None): the SSD scan
     runs as ``ssd_impl``, "xla" (the plain chunked scan) or "pallas"
     (the CUDA kernel on the card, the padded plain version on the CPU);
     with "pallas" the input norm, the conv with its SiLU, and the skip,
@@ -220,8 +230,9 @@ def apply_mamba_block(
     fused = cache is None and ssd_impl == "pallas"
     # the input norm and the skip + gate + output norm: one chain, two routes
     norm = mamba_fused_ops.gated_rmsnorm if fused else mamba_fused_ref.gated_rmsnorm_ref
+    eps = rms_norm_eps(cfg)
     residual = x
-    h = norm(x, params["norm"]["scale"])
+    h = norm(x if addend is None else x + addend, params["norm"]["scale"], eps=eps)
     proj = h @ params["in_proj"].to(h.dtype)
     z, xin, Bm, Cm, dt = _split_proj(cfg, proj)
 
@@ -260,7 +271,8 @@ def apply_mamba_block(
         y = y[:, None]
         new_cache = MambaCache(conv=new_conv, ssm=new_ssm)
 
-    y = norm(y.reshape(b, s, d_inner), params["out_norm"]["scale"], x=xin, D=params["D"], z=z)
+    y = norm(y.reshape(b, s, d_inner), params["out_norm"]["scale"], x=xin, D=params["D"], z=z,
+             eps=eps, group_size=None if g == 1 else d_inner // g)
     out = residual + y @ params["out_proj"].to(y.dtype)
     return out, new_cache
 

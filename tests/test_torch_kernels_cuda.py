@@ -364,7 +364,8 @@ def test_aggregate_leaves_rejects_what_it_does_not_take(cuda_device):
 # ragged S)
 FLASH_SHAPES = [(1, 512, 16, 16, 256), (1, 384, 40, 10, 128), (2, 256, 4, 1, 32),
                 (1, 77, 4, 2, 64), (1, 200, 8, 2, 128), (1, 256, 64, 8, 112),
-                (2, 1024, 16, 16, 64), (1, 256, 48, 8, 128), (1, 333, 40, 8, 128)]
+                (2, 1024, 16, 16, 64), (1, 256, 48, 8, 128), (1, 333, 40, 8, 128),
+                (1, 200, 8, 8, 224)]
 # (causal, window, soft_cap); window without causal skips tiles on one side only
 FLASH_MODES = [(True, None, None), (False, None, None), (True, 96, None),
                (True, None, 20.0), (False, 96, None)]
@@ -441,6 +442,51 @@ def test_flash_kernel_at_zamba2_head(cuda_device, inputs):
     want = flash_attention_ref(q.float(), k.float(), v.float(), True, None, None)
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inputs", list(FLASH_INPUT_SCALES))
+def test_flash_kernel_at_zamba2_7b_head(cuda_device, dtype, inputs):
+    """zamba2-7b's shared attention over its whole 4096-token context: 32
+    heads of 224 (four 64-wide boxes, the last cut at D), causal, the
+    scores scaled by (224 / 2) ** -0.5 as the published block scales them."""
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.flash_ref import flash_attention_ref
+
+    b, s, h, g, d = 2, 4096, 32, 32, 224
+    scale = (d / 2) ** -0.5
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v = (torch.randn(shp, generator=gen, device=cuda_device)
+               .mul(FLASH_INPUT_SCALES[inputs]).to(dtype)
+               for shp in ((b, s, h, d), (b, s, g, d), (b, s, g, d)))
+    got = flash_attention(q, k, v, True, None, None, scale)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), True, None, None, scale)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", FLASH_MODES, ids=["causal", "full", "window",
+                                                   "soft-cap", "full-window"])
+@pytest.mark.parametrize("d", [64, 224])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_a_scale(cuda_device, mode, d, dtype):
+    """A scale other than D^-1/2, in every mode (under the soft cap too),
+    against the plain version with the same scale; no scale keeps the
+    default's bits."""
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.flash_ref import flash_attention_ref
+
+    causal, window, cap = mode
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = (torch.randn(shp, generator=gen, device=cuda_device).to(dtype)
+               for shp in ((1, 300, 8, d), (1, 300, 4, d), (1, 300, 4, d)))
+    got = flash_attention(q, k, v, causal, window, cap, 0.3)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal, window, cap, 0.3)
+    assert_flash_close(got, want)
+    assert torch.equal(flash_attention(q, k, v, causal, window, cap, None),
+                       flash_attention(q, k, v, causal, window, cap))
 
 
 @pytest.mark.cuda
@@ -673,6 +719,32 @@ def test_ssd_kernel_at_zamba2_head_full_length(cuda_device, scale):
     args = (x.float(), dt, A, Bm.float(), Cm.float())
     y_want, s_want = ssd_padded(*args, 128)
     y_lim, s_lim = ssd_rounding_limit(*args, 128)
+    assert_ssd_close(y, y_want, y_lim, torch.bfloat16)
+    assert_ssd_close(state, s_want, s_lim, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", ["tests", "model"])
+def test_ssd_kernel_at_zamba2_7b_head(cuda_device, scale):
+    """zamba2-7b's SSD heads (112 heads of P = 64, G = 2 B/C groups of N =
+    64, chunk 256) over its whole 4096-token context in bf16, x, B and C
+    read in place from one packed convolution output, against the chunked
+    scan."""
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.kernels.ssd_ref import ssd_padded, ssd_rounding_limit
+
+    b, s, h, p, g, n = 1, 4096, 112, 64, 2, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    _, dt, A, _, _ = ssd_inputs(gen, cuda_device, b, s, h, p, g, n, torch.bfloat16, scale)
+    conv = (torch.randn((b, s, h * p + 2 * g * n), generator=gen, device=cuda_device)
+            * 0.5).bfloat16()
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    Bm = conv[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    Cm = conv[..., h * p + g * n:].reshape(b, s, g, n)
+    y, state = ssd_scan(x, dt, A, Bm, Cm, 256)
+    args = (x.float(), dt, A, Bm.float(), Cm.float())
+    y_want, s_want = ssd_padded(*args, 256)
+    y_lim, s_lim = ssd_rounding_limit(*args, 256)
     assert_ssd_close(y, y_want, y_lim, torch.bfloat16)
     assert_ssd_close(state, s_want, s_lim, torch.float32)
 
@@ -1067,6 +1139,36 @@ def test_gated_rmsnorm_matches_plain_chain(cuda_device, arch, size, dtype, form)
     want = gated_rmsnorm_ref(y.float(), scale.float(),
                              **{k: v.float() for k, v in kw.items()})
     assert_fused_close(got, gated_rmsnorm_ref(y, scale, **kw), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(1, 1), (2, 77)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_rmsnorm_normalises_each_group(cuda_device, size, dtype):
+    """K5 as zamba2-7b's gated norm: 2 groups of 3,584 columns, each
+    normalised on its own, the skip over 112 heads and the gate read in
+    place, against the plain chain; in bf16, one group of the whole row
+    gives the default's bits."""
+    from repro_torch.kernels.mamba_fused import gated_rmsnorm
+    from repro_torch.kernels.mamba_fused_ref import gated_rmsnorm_ref
+
+    d, d_inner, heads, c, row = fused_widths("zamba2-7b")
+    gen = torch.Generator(device=cuda_device).manual_seed(size[1])
+    y = torch.randn((*size, d_inner), generator=gen, device=cuda_device).to(dtype)
+    y[..., d_inner // 2:] *= 8.0                       # groups of unlike scale
+    scale = (1.0 + 0.1 * torch.randn((d_inner,), generator=gen, device=cuda_device)).to(dtype)
+    conv_out = torch.randn((*size, c), generator=gen, device=cuda_device).to(dtype)
+    proj = torch.randn((*size, row), generator=gen, device=cuda_device).to(dtype)
+    kw = dict(x=conv_out[..., :d_inner], z=proj[..., :d_inner],
+              D=torch.rand((heads,), generator=gen, device=cuda_device).to(dtype) + 0.5)
+    group = d_inner // 2
+    got = gated_rmsnorm(y, scale, eps=1e-5, group_size=group, **kw)
+    want = gated_rmsnorm_ref(y.float(), scale.float(), eps=1e-5, group_size=group,
+                             **{k: v.float() for k, v in kw.items()})
+    assert_fused_close(got, gated_rmsnorm_ref(y, scale, eps=1e-5, group_size=group, **kw), want)
+    if dtype == torch.bfloat16:     # a float32 row of 7,168 is more than one block holds
+        assert torch.equal(gated_rmsnorm(y, scale, group_size=d_inner, **kw),
+                           gated_rmsnorm(y, scale, **kw))
 
 
 @pytest.mark.cuda
